@@ -340,8 +340,8 @@ def main(argv=None):
                    help="LiDAR points per sweep (real AV2 is ~100k)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--hard", action="store_true",
-                   help="hard ViT-vs-CNN benchmark preset (VERDICT r4 "
-                        "missing #4): ray-shadow occlusion (annotations "
+                   help="hard ViT-vs-CNN benchmark preset: "
+                        "ray-shadow occlusion (annotations "
                         "persist for shadowed cars), unannotated off-lane "
                         "clutter, HALF the logs on curved corridors "
                         "(keep-laners curve too — map context required), "

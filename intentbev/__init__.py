@@ -1,6 +1,6 @@
-"""intentbev — TPU-native BEV detection + intention prediction framework.
+"""intentbev — BEV detection + intention prediction framework in JAX.
 
-A ground-up JAX/XLA/Pallas/pjit rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 Nadeem202020/VisionTransformer-Intention-Prediction (IntentNet on Argoverse 2
 with CNN and ViT backbones). See SURVEY.md for the blueprint.
 """

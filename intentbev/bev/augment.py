@@ -4,12 +4,11 @@
    (flip / rotate / scale) are drawn per sample on the HOST
    (:func:`draw_aug_params`); the raw LiDAR points are transformed on
    device BEFORE voxelization (:func:`augment_points_gt` — a 2x2 matmul on
-   [S, P, 2], ~0.05 ms/batch-8) and the map is RASTERIZED at the augmented
+   [S, P, 2]) and the map is RASTERIZED at the augmented
    pose on the host (rasterize.py ``aug_linear``) — the polygon draw is
    per-pose anyway, so composing the augmentation is free. Patch dropout
-   stays on device (:func:`patch_dropout`). This replaces a measured
-   ~138 ms/step of 299-channel bilinear image gathers with ~0 device cost,
-   and is geometrically EXACT where the reference's post-voxelization
+   stays on device (:func:`patch_dropout`). This replaces 299-channel
+   bilinear image gathers with a 2x2 point transform, and is geometrically EXACT where the reference's post-voxelization
    image warp (utils.py:394-517) smears cells bilinearly and zero-fills
    content rotating in from outside the grid.
 

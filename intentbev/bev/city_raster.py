@@ -21,7 +21,7 @@ STATUS: the TRUSTED fast path is now exact per-pose visibility culling in
 ``rasterize_map_ego_centric`` (cull=True, bitwise-identical, default
 everywhere). This module remains the *approximate* alternative whose value
 is the DEVICE-side warp (``warp_city_to_ego_device``): ship one city
-raster per log and generate every ego-centric map on the TPU — relevant
+raster per log and generate every ego-centric map on the device — relevant
 for streaming inference where host raster time is the bottleneck.
 """
 

@@ -310,7 +310,7 @@ def rasterize_map_ego_centric(
 # full grid: 20.7 MB -> 4.6 MB). The device unpack is a handful of
 # elementwise shifts that XLA fuses into the map stream's first consumer.
 # (The reference ships nothing — its rasterizer output stays host-side,
-# utils.py:108-182; transport compression is a TPU-pipeline concern.)
+# utils.py:108-182; transport compression is a device-pipeline concern.)
 
 def pack_map_channels(map_bev: np.ndarray) -> np.ndarray:
     """Binary u8/bool[..., C] -> u8[..., ceil(C/8)] (MSB-first, like

@@ -7,7 +7,7 @@ into 29 height slices; each (sweep, slice) channel takes the per-pixel
 is channels-last f32[H, W, S*Z] with channel = sweep * Z + z_slice (the
 reference's [S*Z, H, W] transposed).
 
-TPU-native path: the host packs each sample's sweeps into a fixed-size
+Device path: the host packs each sample's sweeps into a fixed-size
 padded tensor (``pack_points``) and the scatter-max runs on device inside
 the jitted step (``voxelize_packed``) — one XLA scatter-max per sample
 instead of the reference's 29-way python loop over ``np.maximum.at``
@@ -96,7 +96,7 @@ def voxelize_packed(
     """Device scatter-max voxelizer.
 
     points f32[S, P, 4]; valid bool[S, P] -> bev [H, W, S*Z] in
-    ``out_dtype``. Emitting bf16 directly halves the HBM read of the
+    ``out_dtype``. Emitting bf16 directly halves the device-memory read of the
     290-channel BEV by the patch-embed conv (f32 batch-8 BEV is ~2.7 GB).
     """
     if not jnp.issubdtype(points.dtype, jnp.floating):
@@ -135,14 +135,8 @@ def voxelize_packed(
     flat = (row * w + col) * c + channel
     flat = jnp.where(ok, flat, h * w * c)  # out-of-range -> dropped
 
-    # NOTE (v5e, round 3): this flat 1-D scatter is deliberate. XLA lowers
-    # it to a custom fusion with a T(1024)(128) output tiling at a
-    # data-independent 14.8 ms/batch-8 (plus a 5.9 ms relayout to the
-    # patch-embed conv's T(8,128) layout). Multi-dim index forms measured
-    # BETTER standalone (3-D indices: order-independent, ~30 ms faster)
-    # but WORSE in-model (XLA still emits the same flat custom fusion,
-    # then normalizes [B,H,W,C] through [B,C,H,W] adding ~12.6 ms of
-    # copies: 58.8 vs 60.8 fps e2e). See docs/PERF.md "voxelizer scatter".
+    # one flat 1-D scatter per sample into the [H*W*C] buffer; invalid
+    # points carry the out-of-range index and are dropped
     bev = jnp.zeros((h * w * c,), dtype=out_dtype)
     if jnp.issubdtype(out_dtype, jnp.integer):
         # integer target (u8 serving path: AV2 intensity is integral 0-255,
@@ -169,13 +163,12 @@ def dedup_cells_host(
     sortedness and uniqueness hold over the whole fixed-size array; the
     device scatter drops them via mode="drop").
 
-    Rationale (docs/PERF.md "voxelizer scatter"): the on-device
-    scatter-max over raw points is a 14.8 ms/batch-8 custom fusion whose
-    cost is dominated by conflict-tolerant random updates. The max-combine
-    is associative and the loader already touches every point, so the
-    host can pre-reduce duplicates (np.maximum.reduceat over a lexsort,
-    ~O(n log n) per sample) and ship (id, value) pairs instead; the device
-    scatter then carries ``unique_indices=True, indices_are_sorted=True``.
+    Rationale: the on-device scatter-max over raw points resolves
+    conflicting updates to the same cell. The max-combine is associative
+    and the loader already touches every point, so the host can
+    pre-reduce duplicates (np.maximum.reduceat over a lexsort, ~O(n log n)
+    per sample) and ship (id, value) pairs instead; the device scatter
+    then carries ``unique_indices=True, indices_are_sorted=True``.
     Exactness: bf16-cast commutes with max (casting is monotonic), so
     host f32 max + device cast == device bf16 max.
     """

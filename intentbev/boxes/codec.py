@@ -5,7 +5,7 @@ are scaled by anchor *width* for x and anchor *length* for y — this
 asymmetric scaling is deliberate parity with the reference
 (decode: utils.py:244-257; encode: loss.py:117-125).
 
-Pure jnp; traces under jit/vmap and runs on TPU.
+Pure jnp; traces under jit/vmap and runs on any backend.
 """
 
 from __future__ import annotations

@@ -76,7 +76,7 @@ def greedy_nms_mask(
     # so the loop terminates at a fixpoint == the sequential greedy answer —
     # typically within the suppression-chain depth (a handful of iterations)
     # rather than K. This removes the dominant sequential bottleneck of the
-    # on-device postprocess (~20 ms/batch at K=1024 on v5e).
+    # on-device postprocess.
     def cond(carry):
         keep, prev, it = carry
         return (it < k) & jnp.any(keep != prev)
@@ -116,7 +116,7 @@ def postprocess_detections(
       box_deltas: f32[N, 6].
       intent_logits: f32[N, C].
       anchors: f32[N, 5].
-      approx_topk: use the TPU-native partial-reduction top-k
+      approx_topk: use the partial-reduction top-k
         (jax.lax.approx_max_k) for candidate selection instead of the exact
         sort — the serving-path choice (bench/streaming inference). In the
         common regime (fewer than max_pre_nms anchors above the confidence

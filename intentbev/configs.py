@@ -223,43 +223,11 @@ class ViTBackboneConfig:
     fusion_layers: int = 2
     fusion_kernel_size: int = 3
     fusion_stride: int = 1
-    use_flash_attention: bool = True
-    use_fused_layernorm: bool = True
-    use_fused_mlp: bool = True
-    # norm1 folded into the qkv matmul / adapter LN folded into its proj
-    # (ops.fused_ln_dense). MEASURED NEGATIVE for inference on v5e
-    # (54.66 -> 53.96 fps): the Pallas LN+qkv runs at ~142 TFLOPS
-    # (0.229 ms/call, fine in isolation) but XLA loses adjacent epilogue
-    # fusions around the custom call, costing more than the standalone
-    # LN's 0.24 ms/call read+write. Kept as an option; off by default.
-    fuse_ln_dense: bool = False
-    # W8A8 serving path: qkv/proj/fc1/fc2 through int8 MXU matmuls and the
-    # int8 flash-attention kernel (ops.flash_int8). Inference only — the
-    # model must be trained bf16/f32 and quantizes on the fly.
+    # W8A8 serving path: the MLP's fc1/fc2 through int8 matmuls with
+    # dynamic activation quantisation (ops.int8); attention stays in the
+    # compute dtype. Inference only — the model is trained bf16/f32 and
+    # quantizes on the fly.
     serving_int8: bool = False
-    # Forward flash-attention variants (ops/flash_packed.py):
-    # fwd_kv_chunk > 0 streams the key axis in that tile size with an
-    # online softmax so MXU and VPU work interleave; unsafe_softmax skips
-    # the row-max pass (exact while every score stays inside the f32 exp
-    # range — validated per checkpoint with tools/score_range.py; use for
-    # SERVING, keep False for training where score ranges drift).
-    fwd_kv_chunk: int = 0
-    unsafe_softmax: bool = False
-    # Serving LN chain (models/vit.py ViTEncoder): on deterministic forward
-    # passes, norm1 of block i+1 and the stack's final norm run as in-VMEM
-    # epilogues of block i's fused tail kernel (ops/fused_ln_mlp ln_out) —
-    # the standalone LN kernels between blocks disappear. Forward-only;
-    # training always uses the differentiable unchained structure.
-    fuse_ln_chain: bool = True
-    # Fused Pallas patch-embed (ops/patch_embed.py) on deterministic TPU
-    # passes for wide (>=128-channel) inputs: consumes the BEV directly and
-    # embeds via 64 (dy,dx)-sliced matmuls against the VMEM-resident conv
-    # kernel. MEASURED NEUTRAL at full scale (60.6 vs 60.8 fps; kernel
-    # 5.2 ms vs the ~4.3 ms conv fusion it replaces — K=290 lane padding
-    # eats the win, and the profiled 6 ms `reshape` relayout turned out to
-    # be the scatter-output layout copy, which persists either way). Kept
-    # off; tested option for narrower-channel configs where K aligns.
-    fuse_patch_embed: bool = False
 
     @property
     def grid_size(self) -> tuple[int, int]:
@@ -328,16 +296,15 @@ class TrainConfig:
     checkpoint_every_steps: int = 500
     log_every_steps: int = 20
     compute_dtype: str = "bfloat16"
-    # remat trades ~10% step time for activation memory; batch 8 at full
-    # scale fits v5e HBM without it (measured: 999 vs 1107 ms/step)
+    # remat (jax.checkpoint per ViT block) trades recomputation for
+    # activation memory
     remat_vit_blocks: bool = False
     donate_train_state: bool = True
     # "points": ship packed points, device augments + scatter-max
     # voxelizes. "chunks": the loader applies the drawn augmentation to
-    # the points on the HOST and ships voxel placement chunks
-    # (ops.voxel_embed) — the train step fills the BEV with the linear
-    # band writer instead of the scatter+layout-copy chain the serving
-    # path already eliminated (VERDICT r4 item 2a).
+    # the points on the HOST and ships deduplicated voxel placement chunks
+    # (ops.voxel_embed) — the train step places them into the BEV with a
+    # scatter-add over unique cells instead of the scatter-max.
     transport: str = "points"
     chunk_capacity: int = 768  # fixed chunk-array size (shape-stable jit)
 
@@ -452,7 +419,6 @@ def tiny_test_config() -> ExperimentConfig:
         adapter_out_channels=16,
         fusion_planes=32,
         fusion_layers=1,
-        use_flash_attention=False,
     )
     cnn = CNNBackboneConfig(
         lidar_input_channels=grid.lidar_total_channels,

@@ -343,7 +343,7 @@ def write_synthetic_log(
     ``num_clutter``: unannotated static obstacles per log
     (:func:`clutter_points` — poles/bushes/walls in the off-lane band
     where parked cars live). Both power the hard ViT-vs-CNN benchmark
-    (docs/TRAINING.md; VERDICT r4 missing #4).
+    (docs/TRAINING.md).
 
     ``ego_xs``: optional per-frame ego x positions (world frame, y=0,
     yaw=0) overriding the default constant-velocity ego. A (mostly)

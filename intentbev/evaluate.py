@@ -13,7 +13,7 @@ constants):
 - intention accuracy / macro-F1 / weighted-F1 / per-class F1 over TP
   detections matched at IoU >= 0.5.
 
-TPU-first: forward + postprocess + AP + matching all run inside one jitted
+Forward + postprocess + AP + matching all run inside one jitted
 program per batch; only tiny per-batch accumulators (AP sums and an 8x8
 confusion matrix) come back to host. The reference pulls every box to CPU
 per sample (eval_cnn.py:181-183).

@@ -1,18 +1,19 @@
-"""Import reference PyTorch checkpoints into intentbev Flax parameter trees.
+"""Import reference PyTorch checkpoints into intentbev parameter trees.
 
 The migration path for users of the reference repo: a checkpoint saved by
 ``train_cnn.py`` (``{epoch, model_state_dict, optimizer_state_dict,
 backbone_cfg}``, reference train_cnn.py:188-197) converts into an intentbev
-orbax checkpoint that ``intentbev-eval`` consumes directly. The mapping is
+checkpoint (flattened ``.npz``, intentbev.checkpoint) that
+``intentbev-eval`` consumes directly. The mapping is
 exact — ``tests/test_weight_import.py`` asserts the imported IntentNetCNN
 forward matches the reference network's output (rtol 1e-3 — f32
 accumulation-order noise only) on shared weights.
 
 Layout conversions:
-- torch Conv2d weight [out, in, kh, kw]  -> flax Conv kernel [kh, kw, in, out]
-- torch Linear weight [out, in]          -> flax Dense kernel [in, out]
-- torch BatchNorm2d weight/bias          -> flax BatchNorm scale/bias (params)
-  running_mean/running_var               -> flax batch_stats mean/var
+- torch Conv2d weight [out, in, kh, kw]  -> conv kernel [kh, kw, in, out]
+- torch Linear weight [out, in]          -> dense kernel [in, out]
+- torch BatchNorm2d weight/bias          -> BatchNorm scale/bias (params)
+  running_mean/running_var               -> batch_stats mean/var
 - torch LayerNorm weight/bias            -> scale/bias
 
 Name map (reference model tree -> intentbev param tree):
@@ -54,12 +55,12 @@ def _np(t) -> np.ndarray:
 
 
 def conv_kernel(w) -> np.ndarray:
-    """torch [out, in, kh, kw] -> flax [kh, kw, in, out]."""
+    """torch [out, in, kh, kw] -> [kh, kw, in, out]."""
     return np.transpose(_np(w), (2, 3, 1, 0))
 
 
 def dense_kernel(w) -> np.ndarray:
-    """torch [out, in] -> flax [in, out]."""
+    """torch [out, in] -> [in, out]."""
     return np.transpose(_np(w), (1, 0))
 
 
@@ -76,7 +77,7 @@ def _bn(sd: Mapping[str, Any], prefix: str) -> tuple[dict, dict]:
 
 
 def _basic_block(sd: Mapping[str, Any], prefix: str) -> tuple[dict, dict]:
-    """One reference BasicBlock (model_cnn.py:14-33) -> flax BasicBlock."""
+    """One reference BasicBlock (model_cnn.py:14-33) -> intentbev BasicBlock."""
     params: dict = {}
     stats: dict = {}
     params["conv1"] = {"kernel": conv_kernel(sd[f"{prefix}.conv1.weight"])}
@@ -167,9 +168,9 @@ def import_vit_encoder(sd: Mapping[str, Any], prefix: str) -> dict:
     structurally identical (CLS + learned pos-embed + pre-LN blocks with
     packed qkv + final LN), and the packed-qkv feature order matches: timm
     reshapes the 3D-wide projection as (3, heads, head_dim) — q first,
-    head-major — exactly how ``jnp.split`` + the packed flash kernel read
-    it (models/vit.py Attention), so the weight moves over with only the
-    torch->flax [out,in]->[in,out] transpose.
+    head-major — exactly how models/vit.py ``attention`` reshapes it to
+    [B, T, 3, H, D], so the weight moves over with only the torch
+    [out,in] -> [in,out] transpose.
     """
     p: dict = {
         "patch_embed": {
@@ -320,7 +321,7 @@ def import_reference_checkpoint(
     num_heads: int | None = None,
 ) -> str:
     """Convert a reference ``torch.save`` checkpoint file into an intentbev
-    orbax checkpoint directory consumable by ``intentbev-eval``."""
+    checkpoint directory consumable by ``intentbev-eval``."""
     import dataclasses
 
     import torch
@@ -378,7 +379,7 @@ def import_reference_checkpoint(
 def main(argv=None):
     p = argparse.ArgumentParser(
         description="Import a reference PyTorch checkpoint into an "
-        "intentbev orbax checkpoint (see docs/MIGRATION.md)."
+        "intentbev checkpoint (see docs/MIGRATION.md)."
     )
     p.add_argument("ckpt", help="reference .pth file (train_*.py output)")
     p.add_argument("out_dir", help="intentbev checkpoint directory to create")

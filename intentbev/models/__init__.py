@@ -3,10 +3,11 @@ from typing import Any
 import jax.numpy as jnp
 
 from ..configs import ExperimentConfig
-from .blocks import BasicBlock, ResidualStage, ensure_nhwc
-from .cnn import CNNBackbone, IntentNetCNN
-from .heads import DetectionHead, IntentionHead, flatten_head_outputs
-from .vit import IntentNetViT, TwoStreamViTBackbone, ViTEncoder
+from .blocks import ensure_nhwc
+from .cnn import IntentNetCNN
+from .heads import flatten_head_outputs
+from .layers import Model
+from .vit import IntentNetViT, ViTEncoder
 
 _DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
@@ -27,9 +28,11 @@ def build_model(cfg: ExperimentConfig, *, train_mode: bool = False) -> Any:
 
 
 __all__ = [
-    "BasicBlock", "ResidualStage", "ensure_nhwc",
-    "CNNBackbone", "IntentNetCNN",
-    "DetectionHead", "IntentionHead", "flatten_head_outputs",
-    "IntentNetViT", "TwoStreamViTBackbone", "ViTEncoder",
+    "ensure_nhwc",
+    "IntentNetCNN",
+    "IntentNetViT",
+    "Model",
+    "ViTEncoder",
+    "flatten_head_outputs",
     "build_model",
 ]

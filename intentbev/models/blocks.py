@@ -1,112 +1,97 @@
-"""Shared residual building blocks (Flax, NHWC).
+"""Shared residual building blocks (NHWC).
 
 One BasicBlock implementation — the reference duplicates it in
 ``model_cnn.py:14-33`` and ``model_vit.py:19-34``. Layout is NHWC
-(channels-last), the native layout for TPU convolutions; the MXU sees
-every conv as a large batched matmul.
+(channels-last).
 
-BatchNorm statistics live in the ``batch_stats`` collection and are
-updated when ``train=True``, mirroring torch BatchNorm2d semantics.
+BatchNorm statistics live in the ``batch_stats`` tree and are updated
+when ``train=True``, mirroring torch BatchNorm2d semantics.
 """
 
 from __future__ import annotations
 
-from typing import Any
-
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
-# Kaiming-normal fan-out init, parity with reference model_cnn.py:102-108.
-conv_kernel_init = nn.initializers.variance_scaling(2.0, "fan_out", "normal")
+from .layers import (
+    batch_norm,
+    child_key,
+    conv,
+    init_batch_norm,
+    init_conv,
+    init_kaiming_out,
+)
 
 
-class BasicBlock(nn.Module):
+def init_basic_block(key, c_in: int, planes: int, stride: int = 1,
+                     kernel_size: int = 3) -> tuple[dict, dict]:
     """ResNet BasicBlock: conv-BN-ReLU x2 + identity/projection shortcut.
 
     Reference: model_cnn.py:14-33 (kernel size configurable; the stream
     stages use k=5, fusion uses k=3 — model_cnn.py:58-75).
     """
+    def conv_p(name, k, ci):
+        return init_conv(child_key(key, name), k, ci, planes,
+                         kernel_init=init_kaiming_out, bias=False)
 
-    planes: int
-    stride: int = 1
-    kernel_size: int = 3
-    dtype: Any = jnp.float32
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, train: bool = False) -> jnp.ndarray:
-        needs_projection = self.stride != 1 or x.shape[-1] != self.planes
-        norm = lambda name: nn.BatchNorm(
-            use_running_average=not train,
-            momentum=0.9,
-            epsilon=1e-5,
-            dtype=self.dtype,
-            name=name,
-        )
-        # torch-style symmetric padding ((k-1)//2 each side, reference
-        # model_cnn.py:7-9), NOT "SAME": for stride-2 convs SAME pads
-        # asymmetrically (e.g. (1, 2) for k=5), sampling a half-pixel-shifted
-        # grid — forwards could never match reference weights
-        # (tools: intentbev.import_torch). Identical to SAME at stride 1.
-        pad = (self.kernel_size - 1) // 2
-        identity = x
-        y = nn.Conv(
-            self.planes,
-            (self.kernel_size, self.kernel_size),
-            strides=(self.stride, self.stride),
-            padding=((pad, pad), (pad, pad)),
-            use_bias=False,
-            kernel_init=conv_kernel_init,
-            dtype=self.dtype,
-            name="conv1",
-        )(x)
-        y = nn.relu(norm("bn1")(y))
-        y = nn.Conv(
-            self.planes,
-            (self.kernel_size, self.kernel_size),
-            padding=((pad, pad), (pad, pad)),
-            use_bias=False,
-            kernel_init=conv_kernel_init,
-            dtype=self.dtype,
-            name="conv2",
-        )(y)
-        y = norm("bn2")(y)
-        if needs_projection:
-            identity = nn.Conv(
-                self.planes,
-                (1, 1),
-                strides=(self.stride, self.stride),
-                use_bias=False,
-                kernel_init=conv_kernel_init,
-                dtype=self.dtype,
-                name="proj_conv",
-            )(x)
-            identity = norm("proj_bn")(identity)
-        return nn.relu(y + identity)
+    params, stats = {}, {}
+    params["conv1"] = conv_p("conv1", kernel_size, c_in)
+    params["bn1"], stats["bn1"] = init_batch_norm(planes)
+    params["conv2"] = conv_p("conv2", kernel_size, planes)
+    params["bn2"], stats["bn2"] = init_batch_norm(planes)
+    if stride != 1 or c_in != planes:
+        params["proj_conv"] = conv_p("proj_conv", 1, c_in)
+        params["proj_bn"], stats["proj_bn"] = init_batch_norm(planes)
+    return params, stats
 
 
-class ResidualStage(nn.Module):
-    """A stack of BasicBlocks; first block carries the stride/projection.
+def basic_block(p: dict, s: dict, x: jnp.ndarray, *, stride: int, dtype,
+                train: bool) -> tuple[jnp.ndarray, dict]:
+    # torch-style symmetric padding ((k-1)//2 each side, reference
+    # model_cnn.py:7-9), NOT "SAME": for stride-2 convs SAME pads
+    # asymmetrically (e.g. (1, 2) for k=5), sampling a half-pixel-shifted
+    # grid — forwards could never match reference weights
+    # (tools: intentbev.import_torch). Identical to SAME at stride 1.
+    pad = (p["conv1"]["kernel"].shape[0] - 1) // 2
+    padding = ((pad, pad), (pad, pad))
+    new = {}
+    y = conv(p["conv1"], x, dtype, stride=stride, padding=padding)
+    y, new["bn1"] = batch_norm(p["bn1"], s["bn1"], y, dtype, train=train)
+    y = jax.nn.relu(y)
+    y = conv(p["conv2"], y, dtype, padding=padding)
+    y, new["bn2"] = batch_norm(p["bn2"], s["bn2"], y, dtype, train=train)
+    identity = x
+    if "proj_conv" in p:
+        identity = conv(p["proj_conv"], x, dtype, stride=stride, padding="VALID")
+        identity, new["proj_bn"] = batch_norm(
+            p["proj_bn"], s["proj_bn"], identity, dtype, train=train)
+    return jax.nn.relu(y + identity), new
+
+
+def init_residual_stage(key, c_in: int, planes: int, num_blocks: int,
+                        stride: int = 1, kernel_size: int = 3
+                        ) -> tuple[dict, dict]:
+    """A stack of BasicBlocks; the first carries the stride/projection.
 
     Reference ``_make_layer`` (model_cnn.py:86-100).
     """
+    params, stats = {}, {}
+    for i in range(num_blocks):
+        params[f"block{i}"], stats[f"block{i}"] = init_basic_block(
+            child_key(key, f"block{i}"), c_in if i == 0 else planes, planes,
+            stride if i == 0 else 1, kernel_size)
+    return params, stats
 
-    planes: int
-    num_blocks: int
-    stride: int = 1
-    kernel_size: int = 3
-    dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, train: bool = False) -> jnp.ndarray:
-        for i in range(self.num_blocks):
-            x = BasicBlock(
-                planes=self.planes,
-                stride=self.stride if i == 0 else 1,
-                kernel_size=self.kernel_size,
-                dtype=self.dtype,
-                name=f"block{i}",
-            )(x, train=train)
-        return x
+@jax.named_scope("residual_stage")
+def residual_stage(p: dict, s: dict, x: jnp.ndarray, *, stride: int, dtype,
+                   train: bool) -> tuple[jnp.ndarray, dict]:
+    new = {}
+    for i in range(len(p)):
+        x, new[f"block{i}"] = basic_block(
+            p[f"block{i}"], s[f"block{i}"], x, stride=stride if i == 0 else 1,
+            dtype=dtype, train=train)
+    return x, new
 
 
 def ensure_nhwc(x: jnp.ndarray, channels: int) -> jnp.ndarray:

@@ -13,82 +13,63 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from ..configs import CNNBackboneConfig, HeadConfig
-from .blocks import ResidualStage, ensure_nhwc
-from .heads import DetectionHead, IntentionHead, flatten_head_outputs
+from .blocks import ensure_nhwc, init_residual_stage, residual_stage
+from .heads import apply_heads, init_heads
+from .layers import Model, child_key
 
 
-class CNNBackbone(nn.Module):
-    cfg: CNNBackboneConfig
-    dtype: Any = jnp.float32
-
-    @nn.compact
-    def __call__(
-        self, lidar_bev: jnp.ndarray, map_bev: jnp.ndarray, train: bool = False
-    ) -> jnp.ndarray:
-        cfg = self.cfg
-
-        def stream(x, planes, prefix):
-            for i, (p, s) in enumerate(zip(planes, cfg.stage_strides)):
-                x = ResidualStage(
-                    planes=p,
-                    num_blocks=cfg.num_blocks_per_stage,
-                    stride=s,
-                    kernel_size=cfg.stream_kernel_size,
-                    dtype=self.dtype,
-                    name=f"{prefix}_stage{i + 1}",
-                )(x, train=train)
-            return x
-
-        l_feat = stream(lidar_bev, cfg.lidar_planes, "lidar")
-        m_feat = stream(map_bev, cfg.map_planes, "map")
-        fused = jnp.concatenate([l_feat, m_feat], axis=-1)
-        return ResidualStage(
-            planes=cfg.fusion_planes,
-            num_blocks=cfg.fusion_layers,
-            stride=cfg.fusion_stride,
-            kernel_size=cfg.fusion_kernel_size,
-            dtype=self.dtype,
-            name="fusion",
-        )(fused, train=train)
-
-
-class IntentNetCNN(nn.Module):
+class IntentNetCNN(Model):
     """Reference model_cnn.py:125-150."""
 
-    cfg: CNNBackboneConfig
-    head_cfg: HeadConfig
-    dtype: Any = jnp.float32
+    def __init__(self, cfg: CNNBackboneConfig, head_cfg: HeadConfig,
+                 dtype: Any = jnp.float32):
+        self.cfg = cfg
+        self.head_cfg = head_cfg
+        self.dtype = dtype
 
-    @nn.compact
-    def __call__(
-        self, lidar_bev: jnp.ndarray, map_bev: jnp.ndarray, train: bool = False
-    ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-        lidar_bev = ensure_nhwc(lidar_bev, self.cfg.lidar_input_channels).astype(self.dtype)
-        map_bev = ensure_nhwc(map_bev, self.cfg.map_input_channels).astype(self.dtype)
+    def _streams(self):
+        cfg = self.cfg
+        return (("lidar", cfg.lidar_input_channels, cfg.lidar_planes),
+                ("map", cfg.map_input_channels, cfg.map_planes))
 
-        features = CNNBackbone(self.cfg, dtype=self.dtype, name="backbone")(
-            lidar_bev, map_bev, train=train
-        )
-        cls_logits, box_preds = DetectionHead(
-            num_anchors=self.head_cfg.num_anchors,
-            num_box_params=self.head_cfg.num_box_params,
-            dtype=self.dtype,
-            name="det_head",
-        )(features)
-        intent_logits = IntentionHead(
-            num_anchors=self.head_cfg.num_anchors,
-            num_classes=self.head_cfg.num_intention_classes,
-            dtype=self.dtype,
-            name="intention_head",
-        )(features)
-        cls_f, box_f, intent_f = flatten_head_outputs(cls_logits, box_preds, intent_logits)
-        # logits return in f32 regardless of compute dtype (loss stability)
-        return (
-            cls_f.astype(jnp.float32),
-            box_f.astype(jnp.float32),
-            intent_f.astype(jnp.float32),
-        )
+    def init_variables(self, key) -> tuple[dict, dict]:
+        cfg = self.cfg
+        kb = child_key(key, "backbone")
+        bp, bs = {}, {}
+        for prefix, c, planes in self._streams():
+            for i, (p, s) in enumerate(zip(planes, cfg.stage_strides)):
+                name = f"{prefix}_stage{i + 1}"
+                bp[name], bs[name] = init_residual_stage(
+                    child_key(kb, name), c, p, cfg.num_blocks_per_stage, s,
+                    cfg.stream_kernel_size)
+                c = p
+        bp["fusion"], bs["fusion"] = init_residual_stage(
+            child_key(kb, "fusion"), cfg.lidar_planes[-1] + cfg.map_planes[-1],
+            cfg.fusion_planes, cfg.fusion_layers, cfg.fusion_stride,
+            cfg.fusion_kernel_size)
+        params = {"backbone": bp,
+                  **init_heads(key, cfg.fusion_planes, self.head_cfg)}
+        return params, {"backbone": bs}
+
+    def forward(self, params, stats, lidar_bev, map_bev, *, train: bool,
+                dropout_key=None):
+        del dropout_key  # no stochastic layers
+        cfg, dt = self.cfg, self.dtype
+        bp, bs = params["backbone"], stats["backbone"]
+        new = {}
+        inputs = {"lidar": lidar_bev, "map": map_bev}
+        feats = []
+        for prefix, c, planes in self._streams():
+            x = ensure_nhwc(inputs[prefix], c).astype(dt)
+            for i, s in enumerate(cfg.stage_strides):
+                name = f"{prefix}_stage{i + 1}"
+                x, new[name] = residual_stage(
+                    bp[name], bs[name], x, stride=s, dtype=dt, train=train)
+            feats.append(x)
+        fused, new["fusion"] = residual_stage(
+            bp["fusion"], bs["fusion"], jnp.concatenate(feats, axis=-1),
+            stride=cfg.fusion_stride, dtype=dt, train=train)
+        return apply_heads(params, fused, self.head_cfg, dt), {"backbone": new}

@@ -1,4 +1,4 @@
-"""IntentNetViT: two-stream Vision Transformer backbone + heads (Flax).
+"""IntentNetViT: two-stream Vision Transformer backbone + heads.
 
 First-party ViT equivalent to timm's ``vit_small_patch8_224`` as used by the
 reference (model_vit.py:62-74): patch-embed conv (8x8 stride 8), CLS token,
@@ -10,738 +10,252 @@ through an adapter LN -> Linear(384 -> 192) -> GELU and reshaped to a
 concat to 384 channels and run through a stride-1 residual fusion stage to
 512 channels (model_vit.py:85-92), giving total stride 8 = patch size.
 
-TPU-first details:
-- attention runs through :func:`intentbev.ops.multi_head_attention`, which
-  dispatches to a blockwise Pallas flash kernel on TPU (O(T) memory instead
-  of timm's dense 4501^2 attention matrix);
-- layout is NHWC; the 290-channel patch-embed conv lowers to a single
-  (64*290) x 384 matmul per token tile on the MXU;
-- compute dtype is configurable (bf16 by default in training) with
-  LayerNorm/softmax/logits kept in f32;
+Details:
+- attention runs through :func:`intentbev.ops.dot_product_attention` on the
+  qkv projection's [B, T, H, D] layout; the implementation follows the
+  compute dtype (cuDNN flash attention for bf16 on the GPU, the dense XLA
+  softmax otherwise — ops/attention.py);
+- layout is NHWC; compute dtype is configurable (bf16 by default in
+  training) with LayerNorm statistics, softmax and logits in f32;
 - blocks can be wrapped in ``jax.checkpoint`` (remat) to trade FLOPs for
-  HBM during training.
+  device memory during training;
+- the LiDAR input may arrive as host-built placement chunks
+  (ops.voxel_embed.VoxelChunks), which are placed into the dense BEV on
+  device before the patch-embed conv.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..configs import HeadConfig, ViTBackboneConfig
-from ..ops import multi_head_attention
-from .blocks import ResidualStage, ensure_nhwc
-from .heads import DetectionHead, IntentionHead, flatten_head_outputs
-
-_dense_init = nn.initializers.truncated_normal(stddev=0.02)
-
-
-def _env_flag(name: str) -> bool:
-    import os
-
-    return os.environ.get(name, "0") not in ("", "0", "false", "False")
-
-
-class PallasLayerNorm(nn.Module):
-    """LayerNorm via the fused Pallas kernel (ops.layernorm) on TPU, with
-    the FastLayerNorm math as the non-TPU fallback. Same parameter names as
-    nn.LayerNorm."""
-
-    dtype: Any = jnp.float32
-    eps: float = 1e-6
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        d = x.shape[-1]
-        scale = self.param("scale", nn.initializers.ones, (d,))
-        bias = self.param("bias", nn.initializers.zeros, (d,))
-        xb = x.astype(self.dtype)
-        if jax.default_backend() == "tpu":
-            from ..ops.layernorm import fused_layernorm
-
-            return fused_layernorm(xb, scale, bias, self.eps)
-        m = jnp.mean(xb, axis=-1, keepdims=True, dtype=jnp.float32)
-        xc = xb - m.astype(self.dtype)
-        var = jnp.mean(jax.lax.square(xc), axis=-1, keepdims=True, dtype=jnp.float32)
-        inv = jax.lax.rsqrt(var + self.eps).astype(self.dtype)
-        return xc * inv * scale.astype(self.dtype) + bias.astype(self.dtype)
+from ..ops.attention import dot_product_attention, padded_seq_len
+from ..ops.int8 import int8_dense
+from .blocks import ensure_nhwc, init_residual_stage, residual_stage
+from .heads import apply_heads, init_heads
+from .layers import (
+    Model,
+    child_key,
+    conv,
+    dense,
+    gelu,
+    init_conv,
+    init_dense,
+    init_layer_norm,
+    init_trunc02,
+    layer_norm,
+)
 
 
-class FastLayerNorm(nn.Module):
-    """Bandwidth-lean LayerNorm: elementwise math in the compute dtype with
-    f32 accumulation inside the reductions only.
+def init_encoder_block(key, d: int, mlp_ratio: float, qkv_bias: bool) -> dict:
+    hidden = int(d * mlp_ratio)
 
-    flax's nn.LayerNorm upcasts the whole activation to f32 before the
-    statistics, which materialises a double-width tensor per call — profiled
-    at ~25 ms/step across the 50 LNs of the full twin-ViT. Here the mean and
-    variance reduce with dtype=f32 accumulators while reads/writes stay
-    bf16; XLA fuses the whole thing into one pass. Parameter names match
-    nn.LayerNorm ('scale'/'bias') so checkpoints are interchangeable.
-    """
+    def lin(name, i, o, bias=True):
+        return init_dense(child_key(key, name), i, o,
+                          kernel_init=init_trunc02, bias=bias)
 
-    dtype: Any = jnp.float32
-    eps: float = 1e-6
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        d = x.shape[-1]
-        scale = self.param("scale", nn.initializers.ones, (d,))
-        bias = self.param("bias", nn.initializers.zeros, (d,))
-        xb = x.astype(self.dtype)
-        m = jnp.mean(xb, axis=-1, keepdims=True, dtype=jnp.float32)
-        xc = xb - m.astype(self.dtype)
-        var = jnp.mean(jax.lax.square(xc), axis=-1, keepdims=True, dtype=jnp.float32)
-        inv = jax.lax.rsqrt(var + self.eps).astype(self.dtype)
-        return xc * inv * scale.astype(self.dtype) + bias.astype(self.dtype)
+    return {
+        "norm1": init_layer_norm(d),
+        "attn": {"qkv": lin("qkv", d, 3 * d, qkv_bias), "proj": lin("proj", d, d)},
+        "norm2": init_layer_norm(d),
+        "mlp": {"fc1": lin("fc1", d, hidden), "fc2": lin("fc2", hidden, d)},
+    }
 
 
-def _apply_ln(x, scale, bias, dtype, use_pallas: bool, eps: float = 1e-6):
-    """LayerNorm with explicit params: the Pallas kernel on TPU when
-    ``use_pallas``, FastLayerNorm math elsewhere — same dispatch as the
-    PallasLayerNorm module, just with externally owned parameters (the
-    serving LN chain hands block i+1's norm1 params to block i)."""
-    xb = x.astype(dtype)
-    if use_pallas and jax.default_backend() == "tpu":
-        from ..ops.layernorm import fused_layernorm
-
-        return fused_layernorm(xb, scale, bias, eps)
-    m = jnp.mean(xb, axis=-1, keepdims=True, dtype=jnp.float32)
-    xc = xb - m.astype(dtype)
-    var = jnp.mean(jax.lax.square(xc), axis=-1, keepdims=True, dtype=jnp.float32)
-    inv = jax.lax.rsqrt(var + eps).astype(dtype)
-    return xc * inv * scale.astype(dtype) + bias.astype(dtype)
+@jax.named_scope("attention")
+def attention(p: dict, x: jnp.ndarray, num_heads: int, dtype,
+              kv_len: int | None = None) -> jnp.ndarray:
+    """qkv projection -> multi-head attention -> output projection.
+    ``kv_len``: real token count when ``x`` carries a padded tail."""
+    b, t, d = x.shape
+    qkv = dense(p["qkv"], x, dtype).reshape(b, t, 3, num_heads, d // num_heads)
+    out = dot_product_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                                kv_len=kv_len)
+    return dense(p["proj"], out.reshape(b, t, d), dtype)
 
 
-class _ConvParams(nn.Module):
-    """Parameter holder matching nn.Conv's param names/shapes (HWIO kernel
-    + bias), so the fused Pallas patch-embed and the conv path share one
-    checkpoint layout."""
-
-    patch: int
-    in_ch: int
-    out_ch: int
-
-    @nn.compact
-    def __call__(self):
-        kernel = self.param(
-            "kernel", _dense_init,
-            (self.patch, self.patch, self.in_ch, self.out_ch),
-        )
-        bias = self.param("bias", nn.initializers.zeros, (self.out_ch,))
-        return kernel, bias
+@jax.named_scope("mlp")
+def mlp(p: dict, x: jnp.ndarray, dtype, int8: bool = False) -> jnp.ndarray:
+    """fc1 -> GELU -> fc2. ``int8``: both matmuls through the W8A8 serving
+    path (ops.int8), inference only."""
+    if int8:
+        y = int8_dense(x, p["fc1"]["kernel"], p["fc1"]["bias"],
+                       out_dtype=jnp.float32)
+        return int8_dense(gelu(y), p["fc2"]["kernel"], p["fc2"]["bias"],
+                          out_dtype=dtype)
+    return dense(p["fc2"], gelu(dense(p["fc1"], x, dtype)), dtype)
 
 
-class _LinearParams(nn.Module):
-    """Parameter holder matching nn.Dense's param names/shapes, so the fused
-    and unfused MLP paths share one checkpoint layout."""
+def encoder_block(p: dict, x: jnp.ndarray, gate: jnp.ndarray | None, *,
+                  num_heads: int, dtype, int8: bool = False,
+                  kv_len: int | None = None) -> jnp.ndarray:
+    """Pre-LN transformer block. ``gate``: per-sample stochastic-depth
+    factor [B, T] (0 or 1/keep) applied to both residual branches."""
+    def gated(y):
+        return y if gate is None else y * gate[..., None].astype(y.dtype)
 
-    features_in: int
-    features_out: int
-
-    @nn.compact
-    def __call__(self):
-        kernel = self.param(
-            "kernel", _dense_init, (self.features_in, self.features_out)
-        )
-        bias = self.param("bias", nn.initializers.zeros, (self.features_out,))
-        return kernel, bias
+    h = layer_norm(p["norm1"], x, dtype)
+    x = x + gated(attention(p["attn"], h, num_heads, dtype, kv_len))
+    h = layer_norm(p["norm2"], x, dtype)
+    return x + gated(mlp(p["mlp"], h, dtype, int8))
 
 
-class _LNParams(nn.Module):
-    """LayerNorm scale/bias params only — same names ('scale'/'bias') as
-    ``PallasLayerNorm``/``FastLayerNorm`` so checkpoints are interchangeable
-    when the LN math runs inside a fused consumer kernel."""
-
-    dim: int
-
-    @nn.compact
-    def __call__(self):
-        scale = self.param("scale", nn.initializers.ones, (self.dim,))
-        bias = self.param("bias", nn.initializers.zeros, (self.dim,))
-        return scale, bias
+def drop_path_gate(key, rate: float, shape: tuple[int, int]) -> jnp.ndarray:
+    """Per-sample stochastic-depth gate (0 or 1/keep), broadcast over
+    tokens — same distribution as timm DropPath."""
+    keep = 1.0 - rate
+    mask = jax.random.bernoulli(key, keep, (shape[0], 1))
+    return jnp.broadcast_to(mask.astype(jnp.float32) / keep, shape)
 
 
-class Mlp(nn.Module):
-    hidden_dim: int
-    out_dim: int
-    fused: bool = False
-    int8_serving: bool = False
-    dtype: Any = jnp.float32
-    ln_eps: float = 1e-6
-
-    @nn.compact
-    def __call__(
-        self,
-        x: jnp.ndarray,
-        residual: jnp.ndarray | None = None,
-        gate: jnp.ndarray | None = None,
-        ln: tuple[jnp.ndarray, jnp.ndarray] | None = None,
-        ln_out: tuple[jnp.ndarray, jnp.ndarray] | None = None,
-    ):
-        """``gate``: per-sample-ish stochastic-depth factor broadcastable to
-        x.shape[:-1]; folded into the fused kernel's epilogue.
-
-        ``ln``: optional (scale, bias) of a pre-MLP LayerNorm to FOLD into
-        this module: on TPU the whole block tail x + gate*mlp(LN(x)) runs as
-        one Pallas kernel (ops.fused_ln_mlp — x read once, out written once);
-        elsewhere the LN is applied eagerly first. When ``ln`` is given,
-        ``residual`` must be the same array as ``x`` (pre-LN block tail).
-
-        ``ln_out``: optional (scale, bias) of a LayerNorm applied to the
-        output as an epilogue; returns ``(out, ln(out))`` instead of ``out``
-        (serving LN chain; requires ``ln``; forward-only on TPU)."""
-        if ln_out is not None and self.int8_serving:
-            raise NotImplementedError("ln_out epilogue not supported on the int8 path")
-        if self.int8_serving:
-            from ..ops.int8 import int8_dense
-
-            d = x.shape[-1]
-            w1, b1 = _LinearParams(d, self.hidden_dim, name="fc1")()
-            w2, b2 = _LinearParams(self.hidden_dim, self.out_dim, name="fc2")()
-            if residual is not None and jax.default_backend() == "tpu":
-                # fused W8A8 kernel: the unfused int8 pair re-materialises
-                # the [rows, 4D] hidden in HBM + a separate f32 GELU pass —
-                # measured SLOWER than the fused bf16 kernel it replaces
-                from ..ops.fused_mlp_int8 import fused_mlp_int8
-
-                return fused_mlp_int8(x, w1, b1, w2, b2, residual, gate=gate)
-            y = int8_dense(x, w1, b1, out_dtype=jnp.float32)
-            y = nn.gelu(y, approximate=False)
-            y = int8_dense(y, w2, b2, out_dtype=self.dtype)
-            if gate is not None:
-                y = y * gate[..., None].astype(y.dtype)
-            if residual is not None:
-                y = y + residual
-            return y
-        use_fused = (
-            self.fused and residual is not None
-            and jax.default_backend() == "tpu"
-        )
-        if use_fused:
-            d = x.shape[-1]
-            w1, b1 = _LinearParams(d, self.hidden_dim, name="fc1")()
-            w2, b2 = _LinearParams(self.hidden_dim, self.out_dim, name="fc2")()
-            if ln is not None:
-                from ..ops.fused_ln_mlp import fused_ln_mlp
-
-                return fused_ln_mlp(
-                    x, ln[0], ln[1], w1.astype(self.dtype), b1,
-                    w2.astype(self.dtype), b2, gate=gate, eps=self.ln_eps,
-                    ln_out=ln_out,
-                )
-            from ..ops.fused_mlp import fused_mlp
-
-            return fused_mlp(
-                x, w1.astype(self.dtype), b1, w2.astype(self.dtype), b2,
-                residual, gate=gate,
-            )
-        if ln is not None:
-            # eager fold (CPU/debug): same math as FastLayerNorm
-            xf = x.astype(jnp.float32)
-            mu = jnp.mean(xf, axis=-1, keepdims=True)
-            xc = xf - mu
-            var = jnp.mean(xc * xc, axis=-1, keepdims=True)
-            inv = jax.lax.rsqrt(var + self.ln_eps).astype(self.dtype)
-            x = (
-                xc.astype(self.dtype) * inv * ln[0].astype(self.dtype)
-                + ln[1].astype(self.dtype)
-            )
-        y = nn.Dense(self.hidden_dim, kernel_init=_dense_init, dtype=self.dtype, name="fc1")(x)
-        y = nn.gelu(y, approximate=False)
-        y = nn.Dense(self.out_dim, kernel_init=_dense_init, dtype=self.dtype, name="fc2")(y)
-        if gate is not None:
-            y = y * gate[..., None].astype(y.dtype)
-        if residual is not None:
-            y = y + residual
-        if ln_out is not None:
-            # eager epilogue (CPU/debug): same math as the kernel epilogue
-            return y, _apply_ln(y, ln_out[0], ln_out[1], self.dtype,
-                                use_pallas=False, eps=self.ln_eps)
-        return y
-
-
-class Attention(nn.Module):
-    num_heads: int
-    qkv_bias: bool = True
-    use_flash: bool = True
-    kv_len: int | None = None  # real token count when x is tail-padded
-    int8_serving: bool = False
-    # forward flash variants (ops/flash_packed.py); None = env default
-    fwd_kv_chunk: int | None = None
-    unsafe_softmax: bool | None = None
-    dtype: Any = jnp.float32
-
-    @nn.compact
-    def __call__(
-        self,
-        x: jnp.ndarray,
-        residual: jnp.ndarray | None = None,
-        gate: jnp.ndarray | None = None,
-        ln: tuple[jnp.ndarray, jnp.ndarray] | None = None,
-    ) -> jnp.ndarray:
-        """``residual``/``gate``: when given (TPU flash path), the output
-        projection runs as a fused residual kernel — y = gate*(out W + b) +
-        residual — removing one full activation read+write per block.
-
-        ``ln``: optional (scale, bias) of the PRE-attention LayerNorm
-        (norm1) to FOLD into the qkv projection: on the TPU flash path
-        qkv = LN(x) @ Wqkv runs as one Pallas kernel (ops.fused_ln_dense),
-        removing the standalone LN's extra activation read+write per block
-        (~6 ms/step of standalone norm1 at flagship scale, docs/PERF.md).
-        When ``ln`` is given, ``x`` must be the PRE-norm residual stream
-        and ``residual`` the same array."""
-        b, t, d = x.shape
-        head_dim = d // self.num_heads
-        # NOTE on int8 serving: attention stays ENTIRELY bf16 even under
-        # serving_int8. Measured on v5e (sublayer micro, [8, 4608, 384]):
-        # bf16 4.83 ms, int8 flash kernel 6.06 ms (QK^T is a 64-deep
-        # contraction where the MXU can't reach the 2x int8 rate, and
-        # quantizing Q/K/V + the P tile costs more than the P@V win), and
-        # int8 qkv/proj denses + bf16 flash tie the micro at 4.83 ms but
-        # measured SLOWER end-to-end (51.4 vs 52.2 fps) — the separate
-        # gate/residual adds and act-quant passes lose the XLA matmul
-        # epilogue fusion the bf16 Dense path gets. ops/flash_int8.py keeps
-        # the int8 kernel as the documented negative result.
-        on_tpu = jax.default_backend() == "tpu"
-        if ln is not None and self.use_flash and on_tpu and self.qkv_bias:
-            from ..ops.fused_ln_dense import fused_ln_dense
-
-            wq, bq = _LinearParams(d, 3 * d, name="qkv")()
-            qkv = fused_ln_dense(
-                x, ln[0], ln[1], wq.astype(self.dtype), bq.astype(jnp.float32)
-            )
-        else:
-            if ln is not None:
-                # eager fold (CPU/debug/no-bias): identical math
-                xf = x.astype(jnp.float32)
-                mu = jnp.mean(xf, axis=-1, keepdims=True)
-                xc = xf - mu
-                var = jnp.mean(xc * xc, axis=-1, keepdims=True)
-                inv = jax.lax.rsqrt(var + 1e-6).astype(self.dtype)
-                x = (
-                    xc.astype(self.dtype) * inv * ln[0].astype(self.dtype)
-                    + ln[1].astype(self.dtype)
-                )
-            qkv = nn.Dense(
-                3 * d, use_bias=self.qkv_bias, kernel_init=_dense_init,
-                dtype=self.dtype, name="qkv",
-            )(x)
-        if self.use_flash and on_tpu:
-            # packed kernels consume the Dense layout [B, T, H*D] directly —
-            # no physical head transposes (profiled ~16 ms/step of copies
-            # on the full twin-ViT with the BHTD layout)
-            from ..ops.flash_packed import flash_attention_packed
-
-            q, k, v = jnp.split(qkv, 3, axis=-1)
-            out = flash_attention_packed(
-                q, k, v, self.num_heads, seq_len=self.kv_len,
-                kv_chunk=self.fwd_kv_chunk,
-                unsafe_softmax=self.unsafe_softmax,
-            )
-        else:
-            qkv = qkv.reshape(b, t, 3, self.num_heads, head_dim)
-            q, k, v = jnp.moveaxis(qkv, 2, 0)  # each [B, T, H, D]
-            q = jnp.transpose(q, (0, 2, 1, 3))  # [B, H, T, D]
-            k = jnp.transpose(k, (0, 2, 1, 3))
-            v = jnp.transpose(v, (0, 2, 1, 3))
-            out = multi_head_attention(
-                q, k, v, use_flash=self.use_flash, kv_len=self.kv_len
-            )
-            out = jnp.transpose(out, (0, 2, 1, 3)).reshape(b, t, d)
-        # NOTE: a fused Pallas proj+residual kernel (ops.fused_proj) was
-        # measured in-model and came out slightly SLOWER than this path —
-        # XLA already fuses the gate/residual into the matmul epilogue here.
-        y = nn.Dense(d, kernel_init=_dense_init, dtype=self.dtype, name="proj")(out)
-        if gate is not None:
-            y = y * gate[..., None].astype(y.dtype)
-        if residual is not None:
-            y = y + residual
-        return y
-
-
-class EncoderBlock(nn.Module):
-    """Pre-LN transformer block, setup-style so the parent can read this
-    block's norm1 parameters (``ln1_params``) BEFORE calling it — the
-    serving LN chain hands them to the previous block's tail kernel as an
-    in-VMEM epilogue (``ln_next``). Param tree is identical to the old
-    compact layout in every config: norm1/norm2 hold {scale, bias}
-    regardless of which kernel applies the math."""
-
-    dim: int
-    num_heads: int
-    mlp_ratio: float
-    qkv_bias: bool
-    drop_path_rate: float
-    use_flash: bool = True
-    kv_len: int | None = None
-    fused_ln: bool = True
-    fuse_ln_dense: bool = True
-    fused_mlp: bool = True
-    int8_serving: bool = False
-    fwd_kv_chunk: int | None = None
-    unsafe_softmax: bool | None = None
-    dtype: Any = jnp.float32
-
-    def setup(self):
-        d = self.dim
-        self.norm1 = _LNParams(d)
-        self.attn = Attention(
-            num_heads=self.num_heads, qkv_bias=self.qkv_bias,
-            use_flash=self.use_flash, kv_len=self.kv_len,
-            int8_serving=self.int8_serving,
-            fwd_kv_chunk=self.fwd_kv_chunk,
-            unsafe_softmax=self.unsafe_softmax,
-            dtype=self.dtype,
-        )
-        self.norm2 = _LNParams(d)
-        self.mlp = Mlp(
-            hidden_dim=int(d * self.mlp_ratio), out_dim=d,
-            fused=self.fused_mlp, int8_serving=self.int8_serving,
-            dtype=self.dtype,
-        )
-
-    def ln1_params(self):
-        return self.norm1()
-
-    def _drop_path_gate(self, x: jnp.ndarray) -> jnp.ndarray:
-        """Per-sample stochastic-depth gate (0 or 1/keep), broadcast over
-        tokens — same distribution as timm DropPath."""
-        keep = 1.0 - self.drop_path_rate
-        rng = self.make_rng("dropout")
-        mask = jax.random.bernoulli(rng, keep, (x.shape[0], 1))
-        return jnp.broadcast_to(mask.astype(jnp.float32) / keep, x.shape[:-1])
-
-    def __call__(
-        self,
-        x: jnp.ndarray,
-        deterministic: bool = True,
-        xn: jnp.ndarray | None = None,
-        ln_next: tuple[jnp.ndarray, jnp.ndarray] | None = None,
-    ):
-        """``xn``: this block's input ALREADY norm1-normed (produced by the
-        previous block's tail epilogue in the serving LN chain).
-        ``ln_next``: (scale, bias) of the NEXT consumer's LayerNorm (next
-        block's norm1 or the stack's final norm) to emit from this block's
-        tail; when given, returns ``(out, ln_next(out))``."""
-        use_gates = self.drop_path_rate > 0.0 and not deterministic
-
-        if xn is not None:
-            x = self.attn(
-                xn.astype(self.dtype), residual=x,
-                gate=self._drop_path_gate(x) if use_gates else None,
-            )
-        elif (self.fused_ln and self.fuse_ln_dense and self.qkv_bias
-                and not self.int8_serving):
-            # norm1 folded into the qkv projection (ops.fused_ln_dense)
-            gamma1, beta1 = self.norm1()
-            x = self.attn(
-                x, residual=x,
-                gate=self._drop_path_gate(x) if use_gates else None,
-                ln=(gamma1, beta1),
-            )
-        else:
-            gamma1, beta1 = self.norm1()
-            h = _apply_ln(x, gamma1, beta1, self.dtype, use_pallas=self.fused_ln)
-            x = self.attn(
-                h.astype(self.dtype),
-                residual=x,
-                gate=self._drop_path_gate(x) if use_gates else None,
-            )
-        gamma2, beta2 = self.norm2()
-        if self.fused_mlp and self.fused_ln and not self.int8_serving:
-            # block tail as ONE kernel on TPU: x + gate*mlp(norm2(x))
-            # (ops.fused_ln_mlp), optionally emitting ln_next(out) too
-            return self.mlp(
-                x, residual=x,
-                gate=self._drop_path_gate(x) if use_gates else None,
-                ln=(gamma2, beta2), ln_out=ln_next,
-            )
-        h = _apply_ln(x, gamma2, beta2, self.dtype, use_pallas=self.fused_ln)
-        x = self.mlp(
-            h.astype(self.dtype), residual=x,
-            gate=self._drop_path_gate(x) if use_gates else None,
-        )
-        if ln_next is not None:
-            return x, _apply_ln(x, ln_next[0], ln_next[1], self.dtype,
-                                use_pallas=self.fused_ln)
-        return x
-
-
-class ViTEncoder(nn.Module):
+class ViTEncoder(Model):
     """Patch embed + CLS + pos embed + transformer stack + final LN.
 
     Returns all tokens [B, 1+N, D] after the final LayerNorm (the
     equivalent of timm ``forward_features``, model_vit.py:119).
     """
 
-    cfg: ViTBackboneConfig
-    in_channels: int
-    use_flash: bool = True
-    remat: bool = False
-    dtype: Any = jnp.float32
-    grid_hw: tuple[int, int] | None = None  # required for VoxelChunks input
+    def __init__(self, cfg: ViTBackboneConfig, in_channels: int,
+                 remat: bool = False, dtype: Any = jnp.float32):
+        self.cfg = cfg
+        self.in_channels = in_channels
+        self.remat = remat
+        self.dtype = dtype
 
-    @nn.compact
-    def __call__(self, x_nhwc, deterministic: bool = True) -> jnp.ndarray:
-        from ..ops.voxel_embed import VoxelChunks, voxel_embed_tokens
-
+    def init_variables(self, key) -> tuple[dict, dict]:
         cfg = self.cfg
+        d = cfg.embed_dim
+        p = {
+            "patch_embed": init_conv(
+                child_key(key, "patch_embed"), cfg.patch_size,
+                self.in_channels, d, kernel_init=init_trunc02),
+            "cls_token": init_trunc02(
+                child_key(key, "cls_token"), (1, 1, d), jnp.float32),
+            "pos_embed": init_trunc02(
+                child_key(key, "pos_embed"), (1, 1 + cfg.num_patches, d),
+                jnp.float32),
+            "norm": init_layer_norm(d),
+        }
+        for i in range(cfg.depth):
+            p[f"block{i}"] = init_encoder_block(
+                child_key(key, f"block{i}"), d, cfg.mlp_ratio, cfg.qkv_bias)
+        return p, {}
+
+    def forward(self, params, stats, x_nhwc, *, train: bool = False,
+                dropout_key=None):
+        cfg, dt = self.cfg, self.dtype
         p = cfg.patch_size
-        if isinstance(x_nhwc, VoxelChunks):
-            # Fused voxelize+patch-embed serving path (ops.voxel_embed):
-            # the host ships placement chunks instead of a dense BEV; the
-            # kernel builds each BEV band in VMEM and embeds it in place —
-            # the [B, H, W, C] BEV never exists in HBM (no XLA scatter, no
-            # layout copy, no conv). Same conv params => same checkpoints.
-            assert self.grid_hw is not None, "grid_hw required for chunks"
-            h, w = self.grid_hw
-            b = x_nhwc.wid.shape[0]
-        else:
-            b, h, w, _ = x_nhwc.shape
+        b, h, w, _ = x_nhwc.shape
         assert h % p == 0 and w % p == 0, f"grid {h}x{w} not divisible by patch {p}"
-        gh, gw = h // p, w // p
-        n = gh * gw
+        d = cfg.embed_dim
+        with jax.named_scope("patch_embed"):
+            tokens = conv(params["patch_embed"], x_nhwc, dt, stride=p,
+                          padding="VALID").reshape(b, -1, d)
+        cls = jnp.broadcast_to(params["cls_token"], (b, 1, d)).astype(tokens.dtype)
+        tokens = jnp.concatenate([cls, tokens], axis=1)
+        tokens = tokens + params["pos_embed"].astype(tokens.dtype)
+        # pad the token axis once for the whole stack where the attention
+        # route needs it (ops.attention.padded_seq_len); padded rows are
+        # per-token dead lanes, masked out of every attention's keys
+        real_len = tokens.shape[1]
+        t_run = padded_seq_len(real_len, dt)
+        if t_run != real_len:
+            tokens = jnp.pad(tokens, ((0, 0), (0, t_run - real_len), (0, 0)))
 
-        if isinstance(x_nhwc, VoxelChunks):
-            wconv, bconv = _ConvParams(
-                p, self.in_channels, cfg.embed_dim, name="patch_embed")()
-            tokens = voxel_embed_tokens(
-                x_nhwc, wconv.astype(self.dtype), bconv, p, (h, w))
-        elif (cfg.fuse_patch_embed and deterministic
-              and x_nhwc.shape[-1] >= 128
-              and jax.default_backend() == "tpu"):
-            # Fused Pallas patch-embed (ops.patch_embed): consumes the BEV
-            # in its scatter-native layout — XLA's ~6 ms/step conv-input
-            # relayout (`reshape.2`, docs/PERF.md) disappears. Same params
-            # as the conv (kernel/bias under "patch_embed"), so checkpoints
-            # are interchangeable. Deterministic passes only (forward-only
-            # kernel); gated to wide inputs (the 9-channel map stream's
-            # conv is already cheap and lane-padding C=9 would waste MXU).
-            from ..ops.patch_embed import patch_embed_matmul
-
-            wconv, bconv = _ConvParams(
-                p, x_nhwc.shape[-1], cfg.embed_dim, name="patch_embed")()
-            tokens = patch_embed_matmul(
-                x_nhwc.astype(self.dtype), wconv.astype(self.dtype),
-                bconv, p)
-        elif (deterministic and jax.default_backend() == "tpu"
-              and x_nhwc.shape[-1] < 32
-              and _env_flag("INTENTBEV_MAP_EMBED_MATMUL")):
-            # Patch-major matmul embed for NARROW streams (the 9-channel
-            # map): XLA's conv reads the [B,400,720,9] input in its
-            # T(8,128) lane-padded tiling — 9 live lanes of 128 — at an
-            # effective ~20 TFLOPS / 0.79 ms per step (profiled,
-            # docs/PERF.md). Reshaping to patch-major [B, N, p*p*C]
-            # (576 lanes for the map) first makes the embed a dense
-            # matmul on a well-packed operand. Same conv params
-            # ("patch_embed" kernel/bias), so checkpoints are
-            # interchangeable; serving-only (env-gated sweep knob).
-            wconv, bconv = _ConvParams(
-                p, x_nhwc.shape[-1], cfg.embed_dim, name="patch_embed")()
-            c_in = x_nhwc.shape[-1]
-            xp = x_nhwc.reshape(b, gh, p, gw, p, c_in)
-            xp = xp.transpose(0, 1, 3, 2, 4, 5).reshape(b, n, p * p * c_in)
-            tokens = (
-                jnp.einsum("bnk,kd->bnd", xp,
-                           wconv.reshape(p * p * c_in, cfg.embed_dim)
-                           .astype(self.dtype))
-                + bconv.astype(self.dtype)
-            )
-        else:
-            x = nn.Conv(
-                cfg.embed_dim, (p, p), strides=(p, p), padding="VALID",
-                kernel_init=_dense_init, dtype=self.dtype, name="patch_embed",
-            )(x_nhwc)
-            tokens = x.reshape(b, n, cfg.embed_dim)
-
-        cls_token = self.param(
-            "cls_token", nn.initializers.truncated_normal(0.02), (1, 1, cfg.embed_dim)
-        )
-        pos_embed = self.param(
-            "pos_embed", nn.initializers.truncated_normal(0.02), (1, 1 + n, cfg.embed_dim)
-        )
-        tokens = jnp.concatenate(
-            [jnp.broadcast_to(cls_token, (b, 1, cfg.embed_dim)).astype(tokens.dtype), tokens],
-            axis=1,
-        )
-        tokens = tokens + pos_embed.astype(tokens.dtype)
-
-        # Pad the token axis ONCE to the flash block multiple for the whole
-        # stack: per-layer pad/slice/copy around the kernel disappears
-        # (profiling: ~27 ms/step at full scale). Padded rows are dead
-        # per-token lanes; attention masks padded keys via kv_len.
-        real_len = 1 + n
-        t_run = real_len
-        if self.use_flash:
-            from ..ops.flash_attention import BLOCK_Q, _pad_len
-
-            t_run = _pad_len(real_len, BLOCK_Q)
-            if t_run != real_len:
-                tokens = jnp.pad(tokens, ((0, 0), (0, t_run - real_len), (0, 0)))
-
-        dp_rates = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
-        block_cls = EncoderBlock
+        use_gates = train and cfg.drop_path_rate > 0.0
+        if use_gates and dropout_key is None:
+            raise ValueError("train=True with drop_path_rate > 0 needs "
+                             "rngs={'dropout': key}")
+        block = functools.partial(
+            encoder_block, num_heads=cfg.num_heads, dtype=dt,
+            int8=cfg.serving_int8,
+            kv_len=real_len if t_run != real_len else None)
         if self.remat:
-            block_cls = nn.remat(EncoderBlock, static_argnums=(2,))
-        blocks = [
-            block_cls(
-                dim=cfg.embed_dim,
-                num_heads=cfg.num_heads,
-                mlp_ratio=cfg.mlp_ratio,
-                qkv_bias=cfg.qkv_bias,
-                drop_path_rate=float(dp_rates[i]),
-                use_flash=self.use_flash,
-                kv_len=real_len if t_run != real_len else None,
-                fused_ln=cfg.use_fused_layernorm,
-                fuse_ln_dense=cfg.fuse_ln_dense,
-                fused_mlp=cfg.use_fused_mlp,
-                int8_serving=cfg.serving_int8,
-                fwd_kv_chunk=cfg.fwd_kv_chunk or None,
-                unsafe_softmax=cfg.unsafe_softmax or None,
-                dtype=self.dtype,
-                name=f"block{i}",
-            )
-            for i in range(cfg.depth)
-        ]
-        use_chain = (
-            cfg.fuse_ln_chain and deterministic
-            and cfg.use_fused_layernorm and cfg.use_fused_mlp
-            and not cfg.fuse_ln_dense and not cfg.serving_int8
-            and not self.remat and cfg.depth > 0
-        )
-        if use_chain:
-            # Serving LN chain: every norm1 (block 1..N-1) AND the final
-            # norm run as in-VMEM epilogues of the previous block's fused
-            # tail kernel — only block 0's norm1 is a standalone LN. The
-            # param tree is identical to the unchained path (norm1/norm2/
-            # norm all hold {scale, bias} wherever the math runs).
-            # Forward-only: gated on `deterministic` (training keeps the
-            # differentiable unchained structure).
-            g_fin, b_fin = _LNParams(cfg.embed_dim, name="norm")()
-            ln1s = [blk.ln1_params() for blk in blocks]
-            xn = _apply_ln(tokens, ln1s[0][0], ln1s[0][1], self.dtype,
-                           use_pallas=cfg.use_fused_layernorm)
-            for i, blk in enumerate(blocks):
-                nxt = ln1s[i + 1] if i + 1 < len(blocks) else (g_fin, b_fin)
-                tokens, xn = blk(tokens, deterministic, xn=xn, ln_next=nxt)
-            # xn is now final_norm(tokens) for free
-            return xn[:, :real_len]
-        for blk in blocks:
-            tokens = blk(tokens, deterministic)
-        tokens = tokens[:, :real_len]
-        final_norm = PallasLayerNorm if cfg.use_fused_layernorm else FastLayerNorm
-        return final_norm(dtype=self.dtype, name="norm")(tokens)
+            block = jax.checkpoint(block)
+        dp_rates = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
+        for i in range(cfg.depth):
+            gate = None
+            if use_gates and dp_rates[i] > 0.0:
+                gate = drop_path_gate(jax.random.fold_in(dropout_key, i),
+                                      float(dp_rates[i]), tokens.shape[:2])
+            tokens = block(params[f"block{i}"], tokens, gate)
+        return layer_norm(params["norm"], tokens[:, :real_len], dt), stats
 
 
-class TwoStreamViTBackbone(nn.Module):
-    """Reference model_vit.py:38-142."""
+class IntentNetViT(Model):
+    """Reference model_vit.py:38-185; same 3-tensor output contract as CNN.
 
-    cfg: ViTBackboneConfig
-    remat: bool = False
-    dtype: Any = jnp.float32
+    Parameter tree: ``backbone/{vit_lidar, vit_map}`` (ViTEncoder),
+    ``backbone/adapter_{lidar,map}_{norm,proj}``, ``backbone/fusion``
+    (residual stage, BatchNorm), ``det_head``, ``intention_head``.
+    """
 
-    @nn.compact
-    def __call__(
-        self, lidar_bev, map_bev: jnp.ndarray, train: bool = False
-    ) -> jnp.ndarray:
+    def __init__(self, cfg: ViTBackboneConfig, head_cfg: HeadConfig,
+                 remat: bool = False, dtype: Any = jnp.float32):
+        self.cfg = cfg
+        self.head_cfg = head_cfg
+        self.remat = remat
+        self.dtype = dtype
+        self.encoders = {
+            name: ViTEncoder(cfg, c, remat=remat, dtype=dtype)
+            for name, c in (("lidar", cfg.lidar_input_channels),
+                            ("map", cfg.map_input_channels))
+        }
+
+    def init_variables(self, key) -> tuple[dict, dict]:
         cfg = self.cfg
+        kb = child_key(key, "backbone")
+        bp = {}
+        for name, enc in self.encoders.items():
+            bp[f"vit_{name}"], _ = enc.init_variables(child_key(kb, f"vit_{name}"))
+            bp[f"adapter_{name}_norm"] = init_layer_norm(cfg.embed_dim)
+            bp[f"adapter_{name}_proj"] = init_dense(
+                child_key(kb, f"adapter_{name}_proj"), cfg.embed_dim,
+                cfg.adapter_out_channels, kernel_init=init_trunc02)
+        bp["fusion"], fusion_stats = init_residual_stage(
+            child_key(kb, "fusion"), 2 * cfg.adapter_out_channels,
+            cfg.fusion_planes, cfg.fusion_layers, cfg.fusion_stride,
+            cfg.fusion_kernel_size)
+        params = {"backbone": bp,
+                  **init_heads(key, cfg.fusion_planes, self.head_cfg)}
+        return params, {"backbone": {"fusion": fusion_stats}}
+
+    def forward(self, params, stats, lidar_bev, map_bev, *, train: bool = False,
+                dropout_key=None):
+        from ..ops.voxel_embed import VoxelChunks, voxel_fill_bev
+
+        cfg, dt = self.cfg, self.dtype
+        if isinstance(lidar_bev, VoxelChunks):
+            # host-built placement chunks: place them into the dense BEV
+            # on device, then the same patch-embed conv as below
+            lidar_bev = voxel_fill_bev(
+                lidar_bev, cfg.img_size, cfg.lidar_input_channels,
+                cfg.patch_size, dtype=dt)
+        inputs = {
+            "lidar": ensure_nhwc(lidar_bev, cfg.lidar_input_channels).astype(dt),
+            "map": ensure_nhwc(map_bev, cfg.map_input_channels).astype(dt),
+        }
+        bp = params["backbone"]
         gh, gw = cfg.grid_size
-        deterministic = not train
-
-        def process_stream(x, name):
-            in_ch = (cfg.lidar_input_channels if name == "lidar"
-                     else cfg.map_input_channels)
-            tokens = ViTEncoder(
-                cfg,
-                in_channels=in_ch,
-                use_flash=cfg.use_flash_attention,
-                remat=self.remat,
-                dtype=self.dtype,
-                grid_hw=cfg.img_size,
-                name=f"vit_{name}",
-            )(x, deterministic)
-            patch_tokens = tokens[:, 1:]  # strip CLS (model_vit.py:119)
-            # adapter LN -> Linear -> GELU (model_vit.py:82-83); on the TPU
-            # fused path all three run as ONE Pallas kernel
-            # (ops.fused_ln_dense with gelu epilogue), same param layout
-            if (cfg.use_fused_layernorm and cfg.fuse_ln_dense
-                    and jax.default_backend() == "tpu"):
-                from ..ops.fused_ln_dense import fused_ln_dense
-
-                gamma, beta = _LNParams(
-                    patch_tokens.shape[-1], name=f"adapter_{name}_norm")()
-                wa, ba = _LinearParams(
-                    patch_tokens.shape[-1], cfg.adapter_out_channels,
-                    name=f"adapter_{name}_proj")()
-                h = fused_ln_dense(
-                    patch_tokens.astype(self.dtype), gamma, beta,
-                    wa.astype(self.dtype), ba.astype(jnp.float32), gelu=True,
-                )
-            else:
-                adapter_norm = PallasLayerNorm if cfg.use_fused_layernorm else FastLayerNorm
-                h = adapter_norm(dtype=self.dtype, name=f"adapter_{name}_norm")(patch_tokens)
-                h = nn.Dense(
-                    cfg.adapter_out_channels, kernel_init=_dense_init,
-                    dtype=self.dtype, name=f"adapter_{name}_proj",
-                )(h.astype(self.dtype))
-                h = nn.gelu(h, approximate=False)
-            return h.reshape(h.shape[0], gh, gw, cfg.adapter_out_channels)
-
-        l_feat = process_stream(lidar_bev, "lidar")
-        m_feat = process_stream(map_bev, "map")
-        fused = jnp.concatenate([l_feat, m_feat], axis=-1)
-        return ResidualStage(
-            planes=cfg.fusion_planes,
-            num_blocks=cfg.fusion_layers,
-            stride=cfg.fusion_stride,
-            kernel_size=cfg.fusion_kernel_size,
-            dtype=self.dtype,
-            name="fusion",
-        )(fused, train=train)
-
-
-class IntentNetViT(nn.Module):
-    """Reference model_vit.py:145-185; same 3-tensor output contract as CNN."""
-
-    cfg: ViTBackboneConfig
-    head_cfg: HeadConfig
-    remat: bool = False
-    dtype: Any = jnp.float32
-
-    @nn.compact
-    def __call__(
-        self, lidar_bev, map_bev: jnp.ndarray, train: bool = False
-    ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-        from ..ops.voxel_embed import VoxelChunks
-
-        if not isinstance(lidar_bev, VoxelChunks):
-            # lidar may instead arrive as host-built placement chunks for
-            # the fused voxelize+patch-embed serving path (ops.voxel_embed)
-            lidar_bev = ensure_nhwc(
-                lidar_bev, self.cfg.lidar_input_channels).astype(self.dtype)
-        map_bev = ensure_nhwc(map_bev, self.cfg.map_input_channels).astype(self.dtype)
-
-        features = TwoStreamViTBackbone(
-            self.cfg, remat=self.remat, dtype=self.dtype, name="backbone"
-        )(lidar_bev, map_bev, train=train)
-        cls_logits, box_preds = DetectionHead(
-            num_anchors=self.head_cfg.num_anchors,
-            num_box_params=self.head_cfg.num_box_params,
-            dtype=self.dtype,
-            name="det_head",
-        )(features)
-        intent_logits = IntentionHead(
-            num_anchors=self.head_cfg.num_anchors,
-            num_classes=self.head_cfg.num_intention_classes,
-            dtype=self.dtype,
-            name="intention_head",
-        )(features)
-        cls_f, box_f, intent_f = flatten_head_outputs(cls_logits, box_preds, intent_logits)
-        return (
-            cls_f.astype(jnp.float32),
-            box_f.astype(jnp.float32),
-            intent_f.astype(jnp.float32),
-        )
+        feats = []
+        for name, enc in self.encoders.items():
+            key = (None if dropout_key is None
+                   else child_key(dropout_key, f"vit_{name}"))
+            tokens, _ = enc.forward(bp[f"vit_{name}"], {}, inputs[name],
+                                    train=train, dropout_key=key)
+            # adapter LN -> Linear -> GELU on the patch tokens, CLS
+            # stripped (model_vit.py:82-83,119)
+            h = layer_norm(bp[f"adapter_{name}_norm"], tokens[:, 1:], dt)
+            h = gelu(dense(bp[f"adapter_{name}_proj"], h, dt))
+            feats.append(h.reshape(h.shape[0], gh, gw, cfg.adapter_out_channels))
+        fused, fusion_stats = residual_stage(
+            bp["fusion"], stats["backbone"]["fusion"],
+            jnp.concatenate(feats, axis=-1), stride=cfg.fusion_stride,
+            dtype=dt, train=train)
+        out = apply_heads(params, fused, self.head_cfg, dt)
+        return out, {"backbone": {"fusion": fusion_stats}}

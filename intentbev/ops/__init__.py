@@ -1,10 +1,13 @@
-from .attention import multi_head_attention, reference_attention
-from .layernorm import fused_layernorm
-from .fused_mlp import fused_mlp
+from .attention import (
+    attention_implementation,
+    dot_product_attention,
+    padded_seq_len,
+    reference_attention,
+)
 
 __all__ = [
-    "multi_head_attention",
+    "attention_implementation",
+    "dot_product_attention",
+    "padded_seq_len",
     "reference_attention",
-    "fused_layernorm",
-    "fused_mlp",
 ]

@@ -1,18 +1,17 @@
 """Int8 serving-path primitives (weights + dynamic activation quantization).
 
-The v5e MXU runs int8 x int8 -> int32 at 394 TOPS — 2x the bf16 peak
-(measured on this chip: 388 vs 192 T(FL)OPS on an 8192x4608x4608 matmul).
-The bf16 inference path is already within ~5% of the attention-bound
-speed-of-light (docs/PERF.md), so int8 is the only lever past it. The
-reference has no quantized path (torch fp32/amp only, model_vit.py) — this
-is a new serving capability.
+H100 tensor cores run int8 x int8 -> int32 at twice the bf16 rate
+(NVIDIA data sheet: 1,979 TOPS vs 989 TFLOP/s dense); whether the
+quantisation passes around the matmuls pay for that on this model is not
+measured yet. The reference has no quantized path (torch fp32/amp only,
+model_vit.py) — this is a new serving capability.
 
 Scheme (standard W8A8 dynamic):
 - weights: symmetric per-OUTPUT-channel int8, scale = absmax/127, computed
   on the fly from the bf16 params (cheap: weights are tiny next to the
   activations; XLA hoists the quantization of loop-invariant weights).
 - activations: symmetric per-ROW (per-token) dynamic int8.
-- accumulate int32 on the MXU, rescale in f32, bias in f32.
+- accumulate int32, rescale in f32, bias in f32.
 """
 
 from __future__ import annotations
@@ -44,7 +43,7 @@ def int8_dense(
     x: jnp.ndarray, w: jnp.ndarray, bias: jnp.ndarray | None = None,
     out_dtype=None,
 ) -> jnp.ndarray:
-    """y = x @ w (+ bias) through an int8 MXU matmul.
+    """y = x @ w (+ bias) through an int8 matmul.
 
     x [..., d_in] (any float dtype), w [d_in, d_out] float params. Output in
     ``out_dtype`` (defaults to x.dtype). Relative error ~1% on normal data.

@@ -1,88 +1,59 @@
-"""Fused voxelize + patch-embed: LiDAR points -> ViT tokens, BEV never in HBM.
+"""Chunk transport: host-built voxel placement chunks -> dense LiDAR BEV.
 
-Why. The serving profile (docs/PERF.md, 60.8 fps config) spends ~25 ms/step
-materializing the [8, 400, 720, 290] BEV only to immediately re-read it:
-the XLA scatter-max custom fusion (~14.8 ms, dominated by zero-init +
-conflict-tolerant random updates into a 1.34 GB bf16 buffer), a ~6 ms
-layout copy of the scatter output, and the ~4.3 ms patch-embed conv. All
-three exist to compute [B, 4500, 384] tokens (27 MB) from ~1.3 M points
-(~5 MB). This kernel goes points -> tokens directly: each program builds
-one 40-row BEV band in VMEM and immediately contracts it against the
-VMEM-resident conv kernel (the proven ops/patch_embed.py matmul phase).
+The serving and chunk-training paths ship the LiDAR sweep as placement
+chunks instead of raw points: the HOST voxelizes (``dedup_cells_host``:
+per-cell max over the points, exact — the bf16 cast commutes with max) and
+groups the unique cells by 64-pixel *window* (64 consecutive pixels in
+row-major order) into *chunks* of <= 64 cells, banded by
+:func:`rows_per_program` patch rows so the arrays have a fixed,
+shape-stable size per band. The C++ builder (cpp ``ib_build_chunks``)
+produces the same arrays ~10x faster than numpy.
 
-The in-tile combine — the piece docs/PERF.md names as the missing
-"vectorized in-tile combine" — is done on the MXU via one-hot placement:
-
-- The HOST pre-reduces duplicate cells (``dedup_cells_host``: per-cell max,
-  exact — bf16 cast commutes with max) so device placement is a SUM over
-  unique cells.
-- Cells are grouped by 64-pixel *window* (64 consecutive pixels in
-  row-major order) into *chunks* of <= 64 cells. For a chunk, the kernel
-  builds two one-hot matrices from lane-major index vectors and multiplies:
-      E[s, k] = (slot_k == s)            f32/bf16 [WINDOW, CAP]
-      X[k, c] = (ch_k   == c) * val_k              [CAP, C]
-      U = E @ X                                    [WINDOW, C]
-  and adds U into the window's rows of the band scratch. One chunk =
-  ~40 VPU ops + one tiny MXU matmul instead of 64 serial scalar stores.
-- Zero-padded chunk slots and whole zero chunks contribute U == 0, so no
-  masking or dynamic trip counts are needed beyond the per-band chunk
-  count (SMEM scalar).
+On device, :func:`voxel_fill_bev` decodes the chunks to flat cell indices
+and scatter-ADDS the values into a zero BEV. Placement is a sum over
+unique cells, so zero padding (empty slots, chunks past a band's count)
+adds nothing; pad slots are routed out of range and dropped so they do
+not pile onto one address. The BEV then feeds the patch-embed conv (ViT)
+or the first stage (CNN) exactly like the scatter-max BEV of
+``bev.voxelize.voxelize_packed``, which it matches bit for bit.
 
 Voxelize semantics match utils.py:62-106 via bev/voxelize.py: per-cell max
 intensity, empty cells 0 (host clamps values to >= 0, which the reference's
-zeros-init ``np.maximum.at`` implies). Patch-embed semantics match the
-stride-P conv (model_vit.py:62-74); parameters are the conv's kernel/bias,
-so checkpoints are interchangeable. Forward-only (serving path).
+zeros-init ``np.maximum.at`` implies).
 """
 
 from __future__ import annotations
 
-import functools
-import os
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .mosaic import kernel_params
-
-# VMEM limit + optional megacore dimension_semantics (see ops/mosaic.py);
-# grid is (batch, band) — fully parallel (disjoint output rows, scratch
-# fully re-initialized per program).
-_COMPILER_PARAMS = kernel_params(2)
-
-WINDOW = 64  # pixels per placement window (rows of one E @ X update)
-CAP = 64     # max cells per chunk (contraction depth of one placement)
+WINDOW = 64  # pixels per placement window
+CAP = 64     # max cells per chunk
 
 # Band geometry the CNN chunk path builds/consumes with (the CNN family has
 # no patch size of its own; the transport just needs ONE agreed value so
-# build_voxel_chunks and voxel_fill_bev band identically). All CNN-path
-# call sites (bench.py, tools/profile_step.py) use this constant — a
-# mismatch would only surface as the runtime band-count assert below.
+# build_voxel_chunks and voxel_fill_bev band identically).
 CNN_CHUNK_PATCH = 8
 
-# 'dot_t':   keep everything lane-major and contract both operands on
-#            their lane dims (rhs-transposed dot) — Mosaic lowers it
-#            natively and it beats 'reshape' on v5e (69.2 vs 67.5 fps e2e).
-# 'reshape': build X sublane-major by relayouting the [1, CAP] index/value
-#            vectors to [CAP, 1] (portable fallback).
-_STRATEGY = os.environ.get("INTENTBEV_VOXEMBED_STRATEGY", "dot_t")
+# patch rows per band when the grid's patch rows divide by it (else 1)
+ROWS_PER_BAND = 5
 
-# Chunk-loop unroll factor. Chunks past a band's count are all-zero, which
-# makes their update U == 0 (val 0 -> X 0), so the loop can safely over-run
-# the count to the next unroll multiple — no masking needed. v5e sweep:
-# 1 -> 69.2, 4 -> 71.7, 8 -> 72.0 fps e2e (dot_t strategy).
-_UNROLL = int(os.environ.get("INTENTBEV_VOXEMBED_UNROLL", "8"))
+
+def rows_per_program(grid_h: int, patch: int) -> int:
+    """Patch rows per band for a grid of ``grid_h`` pixel rows — the one
+    banding rule the host builder and :func:`voxel_fill_bev` share."""
+    gh = grid_h // patch
+    return ROWS_PER_BAND if gh % ROWS_PER_BAND == 0 else 1
 
 
 class VoxelChunks(NamedTuple):
     """Host-built placement chunks for one batch.
 
-    All index/value vectors are lane-major (shape [..., 1, CAP]) so the
-    transport carries no sublane-padded arrays.
+    Per-cell vectors have shape [..., 1, CAP] (the layout both host
+    builders emit).
     """
 
     wid: jnp.ndarray    # i32[B, NB, NC]        window index within band
@@ -90,11 +61,6 @@ class VoxelChunks(NamedTuple):
     ch: jnp.ndarray     # i32[B, NB, NC, 1, CAP] channel of the cell
     val: jnp.ndarray    # f32[B, NB, NC, 1, CAP] cell value (max intensity)
     count: jnp.ndarray  # i32[B, NB]            real chunks per band
-
-
-# one definition of the banding rule — the host chunk builder and the
-# kernel grid must agree with ops/patch_embed's row grouping
-from .patch_embed import rows_per_program  # noqa: E402  (re-export)
 
 
 def pack_chunk_transport(chunks: VoxelChunks,
@@ -119,7 +85,7 @@ def pack_chunk_transport(chunks: VoxelChunks,
     Together: 452 -> 196 bytes/chunk on integral-intensity data (u16
     packed indices + u8 values), a 2.3x transport cut. Inverse:
     :func:`decode_chunk_transport` (elementwise, inside the jitted
-    program, ~0.05 ms/batch at HBM speed).
+    program).
     """
     sl = np.asarray(chunks.sl)
     ch = np.asarray(chunks.ch)
@@ -198,8 +164,8 @@ def build_voxel_chunks(
     wins_per_band = band_px // window
 
     if num_chunks is not None and num_chunks % 8:
-        # the kernel's unroll over-run needs a multiple of the unroll
-        # factor (<= 8); extra zero chunks are arithmetic no-ops
+        # chunk counts are kept to multiples of 8 (the auto-sized builds
+        # round the same way); extra zero chunks place nothing
         num_chunks = -(-num_chunks // 8) * 8
 
     if use_native:
@@ -344,177 +310,26 @@ def stack_voxel_chunks(samples: list[VoxelChunks]) -> VoxelChunks:
     )
 
 
-def _place_band(count_ref, wid_ref, sl_ref, ch_ref, val_ref, scratch_ref,
-                *, window, cap, strategy, cdt):
-    """Zero the band scratch and place this (batch, band)'s chunks into it.
-
-    Shared placement phase of ``_kernel`` (voxelize+patch-embed) and
-    ``_fill_kernel`` (voxelize to dense BEV, CNN path) — identical
-    instruction stream, so the tuned one-hot MXU placement and the unroll
-    sweep apply to both.
-    """
-    c = scratch_ref.shape[-1]
-    # SMEM blocks must span the full trailing dims (count is whole-array:
-    # its [B, NB] shape has no 8/128-compatible blocking), so batch/band
-    # are selected here rather than by the index map
-    batch = pl.program_id(0)
-    band = pl.program_id(1)
-
-    scratch_ref[...] = jnp.zeros_like(scratch_ref)
-
-    def place(g):
-        win = wid_ref[0, band, g]
-        sl_v = sl_ref[0, 0, g]    # [1, cap] lane-major
-        ch_v = ch_ref[0, 0, g]
-        va_v = val_ref[0, 0, g]
-        es = (
-            jax.lax.broadcasted_iota(jnp.int32, (window, cap), 0) == sl_v
-        ).astype(cdt)
-        if strategy == "dot_t":
-            # X^T [c, cap] stays lane-major; contract both lane dims
-            xt = jnp.where(
-                jax.lax.broadcasted_iota(jnp.int32, (c, cap), 0) == ch_v,
-                va_v, 0.0,
-            ).astype(cdt)
-            u = jax.lax.dot_general(
-                es, xt, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-        else:
-            ch_s = ch_v.reshape(cap, 1)
-            va_s = va_v.reshape(cap, 1)
-            x = jnp.where(
-                jax.lax.broadcasted_iota(jnp.int32, (cap, c), 1) == ch_s,
-                va_s, 0.0,
-            ).astype(cdt)
-            u = jax.lax.dot_general(
-                es, x, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-        scratch_ref[win] = (
-            scratch_ref[win].astype(jnp.float32) + u
-        ).astype(scratch_ref.dtype)
-
-    if _UNROLL > 1:
-        # chunk arrays are sized to a multiple of 8 (builder), so any
-        # unroll in {2, 4, 8} can over-run count without going out of range
-        assert wid_ref.shape[-1] % _UNROLL == 0, (wid_ref.shape, _UNROLL)
-
-        def body(g, carry):
-            for i in range(_UNROLL):
-                place(g * _UNROLL + i)
-            return carry
-
-        jax.lax.fori_loop(0, pl.cdiv(count_ref[batch, band], _UNROLL), body, 0)
-    else:
-        def body(g, carry):
-            place(g)
-            return carry
-
-        jax.lax.fori_loop(0, count_ref[batch, band], body, 0)
-
-
-def _kernel(count_ref, wid_ref, sl_ref, ch_ref, val_ref, w_ref, b_ref,
-            o_ref, scratch_ref, *, patch, gw, rows_pp, window, cap,
-            strategy):
-    d = w_ref.shape[-1]
-    c = scratch_ref.shape[-1]
-    _place_band(count_ref, wid_ref, sl_ref, ch_ref, val_ref, scratch_ref,
-                window=window, cap=cap, strategy=strategy, cdt=w_ref.dtype)
-
-    # --- patch-embed matmul phase (ops/patch_embed.py semantics) ---
-    m = rows_pp * gw
-    x = scratch_ref[...].reshape(rows_pp, patch, gw, patch, c)
-    acc = jnp.zeros((m, d), jnp.float32)
-    for dy in range(patch):
-        for dx in range(patch):
-            xs = x[:, dy, :, dx, :].reshape(m, c)
-            acc = acc + jax.lax.dot_general(
-                xs, w_ref[dy, dx], (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-    acc = acc + b_ref[:].astype(jnp.float32)
-    o_ref[0] = acc.reshape(rows_pp, gw, d).astype(o_ref.dtype)
-
-
-def voxel_embed_tokens(
-    chunks: VoxelChunks,
-    kernel: jnp.ndarray,
-    bias: jnp.ndarray,
-    patch: int,
-    grid_hw: tuple[int, int],
-    *,
-    window: int = WINDOW,
-) -> jnp.ndarray:
-    """Placement chunks -> ViT tokens [B, (H//P)*(W//P), D].
-
-    ``kernel`` [P, P, C, D] / ``bias`` [D] are the patch-embed conv
-    parameters; output matches conv(voxelize(points)) + reshape exactly
-    (see tests/test_voxel_embed.py).
-    """
+def chunk_cell_indices(chunks: VoxelChunks, grid_hw: tuple[int, int],
+                       channels: int, patch: int, *,
+                       window: int = WINDOW) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """Decoded chunks -> (flat cell index into [H*W*C], value), each
+    [B, NB*NC*CAP]. Slots holding zero (padding) get the out-of-range
+    index H*W*C."""
     h, w = grid_hw
     b, nb, nc = chunks.wid.shape
-    cap = chunks.sl.shape[-1]
-    _, _, c, d = kernel.shape
-    rows_pp = rows_per_program(h, patch)
-    rows_band = rows_pp * patch
-    assert nb == h // rows_band, (nb, h, rows_band)
-    gw = w // patch
-    nw = rows_band * w // window
-
-    out = pl.pallas_call(
-        functools.partial(
-            _kernel, patch=patch, gw=gw, rows_pp=rows_pp, window=window,
-            cap=cap, strategy=_STRATEGY,
-        ),
-        grid=(b, nb),
-        compiler_params=_COMPILER_PARAMS,
-        in_specs=[
-            pl.BlockSpec((b, nb), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, nb, nc), lambda i, j: (i, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1, nc, 1, cap), lambda i, j: (i, j, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, nc, 1, cap), lambda i, j: (i, j, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, nc, 1, cap), lambda i, j: (i, j, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((patch, patch, c, d), lambda i, j: (0, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, d), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, rows_pp, gw, d), lambda i, j: (i, j, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b, nb * rows_pp, gw, d), kernel.dtype),
-        scratch_shapes=[pltpu.VMEM((nw, window, c), kernel.dtype)],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * nb * (nc * window * cap * c
-                                + rows_pp * gw * patch * patch * c * d),
-            bytes_accessed=(chunks.sl.size * 3 * 4
-                            + patch * patch * c * d * 2
-                            + b * (h // patch) * gw * d * 2),
-            transcendentals=0,
-        ),
-    )(
-        chunks.count, chunks.wid, chunks.sl, chunks.ch, chunks.val,
-        kernel, bias.reshape(1, d),
-    )
-    return out.reshape(b, (h // patch) * gw, d)
+    band_px = rows_per_program(h, patch) * patch * w
+    assert nb * band_px == h * w, (nb, band_px, h, w)
+    band = jnp.arange(nb, dtype=jnp.int32)[None, :, None, None]
+    pix = (band * band_px + chunks.wid[..., None] * window
+           + chunks.sl[:, :, :, 0, :])
+    idx = pix * channels + chunks.ch[:, :, :, 0, :]
+    val = chunks.val[:, :, :, 0, :]
+    idx = jnp.where(val != 0, idx, h * w * channels)
+    return idx.reshape(b, -1), val.reshape(b, -1)
 
 
-def _fill_kernel(count_ref, wid_ref, sl_ref, ch_ref, val_ref,
-                 o_ref, scratch_ref, *, window, cap, strategy, rows_band,
-                 grid_w):
-    c = scratch_ref.shape[-1]
-    _place_band(count_ref, wid_ref, sl_ref, ch_ref, val_ref, scratch_ref,
-                window=window, cap=cap, strategy=strategy, cdt=o_ref.dtype)
-    # windows are 64 consecutive row-major pixels, so the band scratch
-    # [nw, window, c] IS the band image [rows_band, grid_w, c]
-    o_ref[0] = scratch_ref[...].reshape(rows_band, grid_w, c).astype(o_ref.dtype)
-
-
+@jax.named_scope("chunk_placement")
 def voxel_fill_bev(
     chunks: VoxelChunks,
     grid_hw: tuple[int, int],
@@ -524,65 +339,29 @@ def voxel_fill_bev(
     *,
     window: int = WINDOW,
 ) -> jnp.ndarray:
-    """Placement chunks -> dense BEV [B, H, W, C] (the CNN-family input).
+    """Placement chunks (packed or not) -> dense BEV [B, H, W, C].
 
-    The CNN path's equivalent of ``voxel_embed_tokens``: same host chunk
-    transport, same one-hot MXU placement per VMEM band — but the band is
-    written out as image rows instead of being contracted with the
-    patch-embed kernel. Replaces the XLA scatter-max + layout copy
-    (docs/PERF.md: ~27 ms/step on the CNN serving profile) with one linear
-    writer. ``patch`` must match the value the chunks were built with
-    (the band height is derived from it), so one host transport serves
-    both model families. Exact vs ``voxelize_packed`` up to the output
-    dtype cast (per-cell max is computed on the host in f32).
+    ``patch`` must match the value the chunks were built with (the band
+    height is derived from it), so one host transport serves both model
+    families. Exact vs ``voxelize_packed`` up to the output dtype cast (the
+    per-cell max is computed on the host in f32, and each cell is written
+    once).
     """
     h, w = grid_hw
-    b, nb, nc = chunks.wid.shape
-    cap = chunks.sl.shape[-1]
-    rows_band = rows_per_program(h, patch) * patch
-    assert nb == h // rows_band, (nb, h, rows_band)
-    nw = rows_band * w // window
     # channels must cover the builder's channel count: a too-small value
-    # makes out-of-range ch indices fail the one-hot compare and silently
-    # drop those cells. Checked when the chunk arrays are concrete (host
-    # build -> direct call); traced calls inside jit skip the check.
+    # would alias cells into the next pixel. Checked when the chunk arrays
+    # are concrete (host build -> direct call); traced calls skip it.
     if not isinstance(chunks.ch, jax.core.Tracer) and chunks.ch.size:
         ch_max = int(np.max(np.asarray(chunks.ch)))
         assert ch_max < channels, (
             f"chunks carry channel index {ch_max} but voxel_fill_bev was "
-            f"called with channels={channels}; cells would be silently "
-            "dropped"
+            f"called with channels={channels}"
         )
-
-    out = pl.pallas_call(
-        functools.partial(
-            _fill_kernel, window=window, cap=cap, strategy=_STRATEGY,
-            rows_band=rows_band, grid_w=w,
-        ),
-        grid=(b, nb),
-        compiler_params=_COMPILER_PARAMS,
-        in_specs=[
-            pl.BlockSpec((b, nb), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, nb, nc), lambda i, j: (i, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1, nc, 1, cap), lambda i, j: (i, j, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, nc, 1, cap), lambda i, j: (i, j, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, nc, 1, cap), lambda i, j: (i, j, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, rows_band, w, channels),
-                               lambda i, j: (i, j, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b, h, w, channels), dtype),
-        scratch_shapes=[pltpu.VMEM((nw, window, channels), dtype)],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * nb * nc * window * cap * channels,
-            bytes_accessed=(chunks.sl.size * 3 * 4
-                            + b * h * w * channels * 2),
-            transcendentals=0,
-        ),
-    )(chunks.count, chunks.wid, chunks.sl, chunks.ch, chunks.val)
-    return out
+    chunks = decode_chunk_transport(chunks)
+    b = chunks.wid.shape[0]
+    idx, val = chunk_cell_indices(chunks, grid_hw, channels, patch,
+                                  window=window)
+    rows = jnp.broadcast_to(jnp.arange(b, dtype=jnp.int32)[:, None], idx.shape)
+    bev = jnp.zeros((b, h * w * channels), dtype).at[rows, idx].add(
+        val.astype(dtype), mode="drop")
+    return bev.reshape(b, h, w, channels)

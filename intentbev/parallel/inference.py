@@ -1,4 +1,4 @@
-"""Streaming multi-sweep inference across a TPU slice (driver config 5).
+"""Streaming multi-sweep inference across a device mesh (driver config 5).
 
 Batch-sharded inference over the ('data',) mesh axis with voxelization,
 forward, decode and NMS all on device; only the fixed-size detection
@@ -40,11 +40,10 @@ class StreamingInferencer:
 
         - "points" (default): ship packed points; voxelize on device
           (training-identical dense-BEV path).
-        - "chunks": build voxel placement chunks on the host (C++
-          ``ib_build_chunks``) and run the fused voxelize+patch-embed
-          serving kernel (ops.voxel_embed) — the dense BEV never exists
-          in HBM; measured 61.6 -> 72.7 fps on v5e (docs/PERF.md). The
-          ``__call__`` API is unchanged; ``num_chunks`` fixes the chunk
+        - "chunks": build deduplicated voxel placement chunks on the host
+          (C++ ``ib_build_chunks``); the device places them into the BEV
+          with a scatter-add (ops.voxel_embed) instead of the scatter-max
+          voxelizer. The ``__call__`` API is unchanged; ``num_chunks`` fixes the chunk
           capacity so the program compiles once (overfull bands drop
           their rarest-window cells — raise it if the data needs more).
         """
@@ -88,14 +87,8 @@ class StreamingInferencer:
             return postprocess(cls_l, box_d, int_l)
 
         def infer_chunks(variables, chunks, map_bev):
-            # decode the compact transport (u16 slot|channel packing, u8
-            # values — ops.voxel_embed.pack_chunk_transport) back to the
-            # kernel's i32/f32: an elementwise convert inside the program
-            # (~0.05 ms/batch at HBM speed) that buys a ~2.3x smaller
-            # host->device transfer
-            from ..ops.voxel_embed import decode_chunk_transport
-
-            chunks = decode_chunk_transport(chunks)
+            # the model decodes the compact transport (u16 slot|channel,
+            # u8 values — ops.voxel_embed.pack_chunk_transport) in program
             cls_l, box_d, int_l = self.model.apply(
                 variables, chunks,
                 decode_map_transport(map_bev, grid.map_channels, mdt),
@@ -132,8 +125,8 @@ class StreamingInferencer:
                     points_per_sweep: int = 2048):
         """Lower + compile the streaming program at the given global batch
         with abstract inputs (no full-size arrays materialized) — the
-        flagship-shape multi-chip validation path (BASELINE config 5:
-        streaming inference across a v5e-16 slice at full grid size).
+        flagship-shape multi-device validation path (BASELINE config 5:
+        streaming inference across a mesh at full grid size).
         Returns the compiled executable; works with abstract ``variables``
         (pass ``jax.eval_shape`` of the init to the constructor)."""
         g = self.cfg.grid
@@ -180,10 +173,10 @@ class StreamingInferencer:
         The transport ships COMPACT (ops.voxel_embed.pack_chunk_transport):
         slot+channel packed into one u16 per cell, values as u8 when the
         source intensities are integral 0-255 (AV2's are uint8, so exact
-        on real data) — decoded to the kernel's i32/f32 inside the jitted
-        program. Cuts the chunk transfer from 3.95 to ~1.7 MB/sample,
-        which is the difference wherever the host->device link (tunnel,
-        DCN feed) is the sustained-rate limiter."""
+        on real data) — decoded to i32/f32 inside the jitted program.
+        Cuts the chunk transfer from 3.95 to ~1.7 MB/sample, which
+        matters wherever the host->device link is the sustained-rate
+        limiter."""
         from ..ops.voxel_embed import (build_voxel_chunks,
                                        pack_chunk_transport,
                                        stack_voxel_chunks)

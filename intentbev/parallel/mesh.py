@@ -1,14 +1,15 @@
-"""Device-mesh construction for DP x TP sharding over ICI/DCN.
+"""Device-mesh construction for DP x TP sharding.
 
 The reference is strictly single-device (SURVEY.md §2.2: no
-torch.distributed anywhere); this module supplies the distributed backbone
-the TPU build adds: a ``jax.sharding.Mesh`` over ('data', 'model') axes.
-Data parallelism rides the 'data' axis (gradient all-reduce becomes an XLA
-psum over ICI under jit); optional tensor parallelism shards ViT attention
-heads and MLP hidden units over 'model'.
+torch.distributed anywhere); this module supplies the distributed backbone:
+a ``jax.sharding.Mesh`` over ('data', 'model') axes. Data parallelism rides
+the 'data' axis (gradient all-reduce becomes an XLA psum under jit, NCCL on
+GPUs); optional tensor parallelism shards ViT attention heads and MLP
+hidden units over 'model'.
 
-Multi-host: call ``initialize_distributed()`` once per process before mesh
-creation; per-host input pipelines then feed their local shard via
+Multi-process: call ``initialize_distributed(coordinator_address=...,
+num_processes=..., process_id=...)`` once per process before mesh
+creation; per-process input pipelines then feed their local shard via
 ``jax.make_array_from_process_local_data`` (see ``local_batch_slice``).
 """
 
@@ -22,12 +23,18 @@ from ..configs import MeshConfig
 
 
 def initialize_distributed(**kwargs) -> None:
-    """jax.distributed.initialize for multi-host DCN jobs (no-op if single
-    process or already initialised)."""
-    try:
-        jax.distributed.initialize(**kwargs)
-    except (RuntimeError, ValueError):
-        pass  # already initialised or single-process launch
+    """``jax.distributed.initialize(**kwargs)`` for multi-process jobs.
+
+    A no-op when this process is already initialised, or when the job is
+    a single process (no ``coordinator_address`` and ``num_processes`` of
+    1 or unset). Every other failure propagates.
+    """
+    if jax.distributed.is_initialized():
+        return
+    if (kwargs.get("coordinator_address") is None
+            and kwargs.get("num_processes") in (None, 1)):
+        return
+    jax.distributed.initialize(**kwargs)
 
 
 def create_mesh(cfg: MeshConfig, devices=None) -> Mesh:

@@ -29,7 +29,7 @@ def batch_sharding(mesh: Mesh, cfg: MeshConfig) -> NamedSharding:
 
 
 def _param_spec(path: tuple[str, ...], leaf, model_axis: str) -> P:
-    """Tensor-parallel partition spec for one parameter, by flax path."""
+    """Tensor-parallel partition spec for one parameter, by tree path."""
     names = [getattr(k, "key", str(k)) for k in path]
     joined = "/".join(names)
     ndim = getattr(leaf, "ndim", 0)

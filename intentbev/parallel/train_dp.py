@@ -2,7 +2,7 @@
 
 One compiled program: batch arrives sharded over 'data', parameters are
 replicated over 'data' and (optionally) sharded over 'model'; XLA inserts
-the gradient all-reduce over ICI. BatchNorm batch statistics reduce over
+the gradient all-reduce (NCCL on GPUs). BatchNorm batch statistics reduce over
 the full (global) batch dimension automatically under GSPMD — the mean
 over a data-sharded axis lowers to a cross-device psum.
 
@@ -12,15 +12,10 @@ This is the component the reference lacks entirely (SURVEY.md §2.2:
 
 from __future__ import annotations
 
-from typing import Any
-
 import jax
-import jax.numpy as jnp
-import optax
 
 from ..configs import ExperimentConfig
-from ..losses import detection_intention_loss
-from ..train import TrainState, _augmented_inputs
+from ..train import TrainState, train_step_fn
 from .sharding import batch_sharding, param_shardings, replicated
 
 
@@ -51,54 +46,9 @@ def make_sharded_train_step(model, cfg: ExperimentConfig, anchors, tx, mesh,
     silently dropping them under --distributed would diverge from
     single-device behaviour.
     """
-    grid, aug_cfg, loss_cfg = cfg.grid, cfg.augment, cfg.loss
     b_shard = batch_sharding(mesh, cfg.mesh)
     rep = replicated(mesh)
-    from ..train import chunk_patch_for
-
-    chunk_patch = chunk_patch_for(cfg)
-
-    def step_fn(state: TrainState, batch, rng: jax.Array):
-        rng = jax.random.fold_in(rng, state.step)
-        rng_aug, rng_loss, rng_drop = jax.random.split(rng, 3)
-
-        compute_dtype = jnp.bfloat16 if cfg.train.compute_dtype == "bfloat16" else jnp.float32
-        lidar, map_bev, gt_boxes, gt_intents = _augmented_inputs(
-            batch, rng_aug, aug_cfg, grid, compute_dtype,
-            chunk_patch=chunk_patch,
-        )
-
-        def loss_fn(params):
-            variables = {"params": params}
-            mutable = []
-            if state.batch_stats:
-                variables["batch_stats"] = state.batch_stats
-                mutable = ["batch_stats"]
-            out = model.apply(
-                variables, lidar, map_bev, train=True,
-                mutable=mutable, rngs={"dropout": rng_drop},
-            )
-            (cls_l, box_d, int_l), upd = out if mutable else (out, {})
-            loss_out = detection_intention_loss(
-                cls_l, box_d, int_l, anchors,
-                gt_boxes, gt_intents, batch["gt_valid"],
-                loss_cfg, rng_loss,
-                intention_class_weights=intention_weights,
-            )
-            return loss_out["loss"], (loss_out, upd.get("batch_stats", state.batch_stats))
-
-        (loss, (loss_out, new_bs)), grads = jax.value_and_grad(
-            loss_fn, has_aux=True
-        )(state.params)
-        updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
-        new_params = optax.apply_updates(state.params, updates)
-        new_state = TrainState(
-            params=new_params, batch_stats=new_bs,
-            opt_state=new_opt_state, step=state.step + 1,
-        )
-        metrics = {k: loss_out[k] for k in
-                   ("loss", "cls_loss", "box_loss", "intent_loss", "num_pos_anchors")}
-        return new_state, metrics
+    step_fn = train_step_fn(model, cfg, anchors, tx, intention_weights)
 
     if cfg.train.transport == "chunks":
         from ..ops.voxel_embed import VoxelChunks

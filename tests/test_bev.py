@@ -71,8 +71,7 @@ class TestVoxelizer:
         assert got.sum() == 0
 
     def test_u8_out_dtype_exact_for_integral_intensity(self, rng):
-        """u8 serving target (docs/PERF.md: measured-neutral on v5e, kept
-        as a transport option): exact vs the f32 oracle when intensities
+        """u8 serving target (kept as a transport option): exact vs the f32 oracle when intensities
         are integral, and invalid/out-of-range points still dropped."""
         grid = SMALL_GRID
         n = 400

@@ -1,4 +1,4 @@
-"""Hard-benchmark synthetic features (VERDICT r4 missing #4): ray-shadow
+"""Hard-benchmark synthetic features: ray-shadow
 occlusion, unannotated clutter, curved corridors, and train label noise —
 the dataset knobs behind the ViT-vs-CNN separation experiment
 (docs/TRAINING.md)."""

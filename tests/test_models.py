@@ -59,14 +59,14 @@ class TestForwardContract:
 
     def test_head_anchor_ordering_contract(self, cfg):
         """The flattened anchor index must be ((h*Wf + w)*A + a)."""
-        from intentbev.models.heads import DetectionHead, flatten_head_outputs
-        import flax.linen as nn
+        from intentbev.configs import HeadConfig
+        from intentbev.models.heads import (detection_head, flatten_head_outputs,
+                                            init_heads)
 
         A = 5
-        head = DetectionHead(num_anchors=A)
         feat = jnp.zeros((1, 3, 4, 8))
-        params = head.init(jax.random.key(0), feat)
-        cls_l, box_p = head.apply(params, feat)
+        params = init_heads(jax.random.key(0), 8, HeadConfig(num_anchors=A))
+        cls_l, box_p = detection_head(params["det_head"], feat, A, jnp.float32)
         assert cls_l.shape == (1, 3, 4, A)
         # mark one spatial-anchor cell and check where it lands after flatten
         marked = cls_l.at[0, 1, 2, 3].set(99.0)

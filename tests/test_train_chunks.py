@@ -1,7 +1,7 @@
-"""Chunk train transport (VERDICT r4 item 2a): host-side augmentation +
-chunk build must reproduce the device path (augment_points_gt ->
-voxelize_packed) cell-for-cell, and the train step must run end to end on
-ChunkBatch inputs."""
+"""Chunk train transport: host-side augmentation + chunk build must
+reproduce the device path (augment_points_gt -> voxelize_packed)
+cell-for-cell, and the train step must run end to end on ChunkBatch
+inputs."""
 
 import dataclasses
 
@@ -10,7 +10,6 @@ import pytest
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
 from intentbev.bev.augment import (
     augment_gt,
@@ -62,7 +61,7 @@ class TestHostAugmentParity:
 
     @pytest.mark.parametrize("aug", AUG_CASES, ids=["id", "flip", "rot", "all"])
     def test_bev_matches_device_path(self, rng, aug):
-        """host aug -> chunks -> pack -> decode -> voxel_fill_bev equals
+        """host aug -> chunks -> pack -> voxel_fill_bev (decodes) equals
         device aug -> voxelize_packed, cell for cell (rotation: up to a
         handful of boundary cells from cos/sin ULP differences)."""
         pts, valid = _points(rng)
@@ -79,11 +78,9 @@ class TestHostAugmentParity:
         chunks, _ = ve.build_voxel_chunks(host_pts, valid, GRID, PATCH)
         packed = jax.tree_util.tree_map(
             jnp.asarray, ve.pack_chunk_transport(chunks))
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(ve.voxel_fill_bev(
-                ve.decode_chunk_transport(packed),
-                (GRID.height_px, GRID.width_px), GRID.lidar_total_channels,
-                PATCH, dtype=jnp.float32))[0]
+        got = np.asarray(ve.voxel_fill_bev(
+            packed, (GRID.height_px, GRID.width_px), GRID.lidar_total_channels,
+            PATCH, dtype=jnp.float32))[0]
 
         mismatch = np.count_nonzero(got != want)
         if aug[1] == 0.0:
@@ -170,9 +167,8 @@ class TestChunkTrainStep:
             "points_valid": jnp.asarray(np.stack(val_list)), **common}
 
         state = init_train_state(model, cfg, tx, jax.random.key(0))
-        with pltpu.force_tpu_interpret_mode():
-            new_state, m_chunks = jax.tree_util.tree_map(
-                np.asarray, step(state, batch_chunks, jax.random.key(1)))
+        new_state, m_chunks = jax.tree_util.tree_map(
+            np.asarray, step(state, batch_chunks, jax.random.key(1)))
         state2 = init_train_state(model, cfg, tx, jax.random.key(0))
         _, m_points = jax.tree_util.tree_map(
             np.asarray, step(state2, batch_points, jax.random.key(1)))
@@ -230,12 +226,10 @@ class TestChunkTrainStep:
         want = np.asarray(jax.vmap(
             lambda p, v: voxelize_packed(p, v, cfg.grid)
         )(dev_pts, jnp.asarray(pb.points_valid)))
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(ve.voxel_fill_bev(
-                ve.decode_chunk_transport(
-                    jax.tree_util.tree_map(jnp.asarray, cb.chunks)),
-                (cfg.grid.height_px, cfg.grid.width_px),
-                cfg.grid.lidar_total_channels, PATCH, dtype=jnp.float32))
+        got = np.asarray(ve.voxel_fill_bev(
+            jax.tree_util.tree_map(jnp.asarray, cb.chunks),
+            (cfg.grid.height_px, cfg.grid.width_px),
+            cfg.grid.lidar_total_channels, PATCH, dtype=jnp.float32))
         # points path quantizes to cm for transport; host chunk path uses
         # raw f32 points — identical for the synthetic generator's data up
         # to boundary cells

@@ -1,19 +1,23 @@
-"""Fused voxelize+patch-embed vs conv(voxelize) oracle (interpret mode)."""
+"""Chunk transport: host chunk builders + device placement (voxel_fill_bev)
+against the scatter-max voxelizer, alone and followed by the patch-embed
+conv the ViT runs on the placed BEV."""
 
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from intentbev.configs import GridConfig
 from intentbev.bev.voxelize import voxelize_packed
+from intentbev.models.layers import conv
 from intentbev.ops import voxel_embed as ve
 
 GRID = GridConfig(height_px=64, width_px=96, lidar_height_channels=4,
                   lidar_sweeps=2)
 PATCH = 8
+HW = (GRID.height_px, GRID.width_px)
+C = GRID.lidar_total_channels
 
 
 def _random_points(rng, s=2, p=500):
@@ -30,6 +34,14 @@ def _random_points(rng, s=2, p=500):
     return pts, valid
 
 
+def _embed(chunks, kernel, bias):
+    """Placement -> patch-embed conv -> tokens [B, N, D] (the ViT's path)."""
+    bev = ve.voxel_fill_bev(chunks, HW, C, PATCH, dtype=kernel.dtype)
+    y = conv({"kernel": kernel, "bias": bias}, bev, kernel.dtype, stride=PATCH,
+             padding="VALID")
+    return np.asarray(y.reshape(y.shape[0], -1, y.shape[-1]), np.float32)
+
+
 def _oracle_tokens(pts, valid, kernel, bias):
     bev = voxelize_packed(jnp.asarray(pts), jnp.asarray(valid), GRID)
     y = jax.lax.conv_general_dilated(
@@ -38,6 +50,10 @@ def _oracle_tokens(pts, valid, kernel, bias):
         dimension_numbers=("NHWC", "HWIO", "NHWC"),
     ) + bias
     return np.asarray(y.reshape(1, -1, y.shape[-1]), np.float32)
+
+
+def _jnp(chunks):
+    return jax.tree_util.tree_map(jnp.asarray, chunks)
 
 
 @pytest.fixture
@@ -49,16 +65,14 @@ def weights(rng):
 
 
 class TestVoxelEmbed:
-    @pytest.mark.parametrize("strategy", ["reshape", "dot_t"])
-    def test_parity_vs_conv_voxelize(self, rng, weights, strategy, monkeypatch):
-        monkeypatch.setattr(ve, "_STRATEGY", strategy)
+    @pytest.mark.parametrize("packed", [False, True])
+    def test_parity_vs_conv_voxelize(self, rng, weights, packed):
         k, b = weights
         pts, valid = _random_points(rng)
         chunks, _ = ve.build_voxel_chunks(pts, valid, GRID, PATCH)
-        chunks = jax.tree_util.tree_map(jnp.asarray, chunks)
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(ve.voxel_embed_tokens(
-                chunks, k, b, PATCH, (GRID.height_px, GRID.width_px)))
+        if packed:
+            chunks = ve.pack_chunk_transport(chunks)
+        got = _embed(_jnp(chunks), k, b)
         want = _oracle_tokens(pts, valid, k, b)
         np.testing.assert_allclose(got[0], want[0], atol=2e-3, rtol=1e-4)
 
@@ -70,15 +84,11 @@ class TestVoxelEmbed:
             c, _ = ve.build_voxel_chunks(pts, valid, GRID, PATCH)
             samples.append(c)
             wants.append(_oracle_tokens(pts, valid, k, b)[0])
-        chunks = jax.tree_util.tree_map(
-            jnp.asarray, ve.stack_voxel_chunks(samples))
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(ve.voxel_embed_tokens(
-                chunks, k, b, PATCH, (GRID.height_px, GRID.width_px)))
+        got = _embed(_jnp(ve.stack_voxel_chunks(samples)), k, b)
         np.testing.assert_allclose(got, np.stack(wants), atol=2e-3, rtol=1e-4)
 
     def test_bf16_matches_bf16_bev_path(self, rng, weights):
-        """bf16 kernel/scratch == conv over the bf16 voxelizer output."""
+        """bf16 placement + conv == conv over the bf16 voxelizer output."""
         k, b = weights
         pts, valid = _random_points(rng)
         bev16 = voxelize_packed(jnp.asarray(pts), jnp.asarray(valid), GRID,
@@ -87,14 +97,10 @@ class TestVoxelEmbed:
             bev16[None], k.astype(jnp.bfloat16),
             window_strides=(PATCH, PATCH), padding="VALID",
             dimension_numbers=("NHWC", "HWIO", "NHWC"),
-        ) + b
+        ) + b.astype(jnp.bfloat16)
         want = np.asarray(want.reshape(1, -1, 16), np.float32)
         chunks, _ = ve.build_voxel_chunks(pts, valid, GRID, PATCH)
-        chunks = jax.tree_util.tree_map(jnp.asarray, chunks)
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(ve.voxel_embed_tokens(
-                chunks, k.astype(jnp.bfloat16), b, PATCH,
-                (GRID.height_px, GRID.width_px))).astype(np.float32)
+        got = _embed(_jnp(chunks), k.astype(jnp.bfloat16), b)
         np.testing.assert_allclose(got, want, atol=0.5, rtol=0.05)
 
     def test_empty_sample(self, weights):
@@ -102,10 +108,7 @@ class TestVoxelEmbed:
         pts = np.zeros((2, 10, 4), np.float32)
         valid = np.zeros((2, 10), bool)
         chunks, _ = ve.build_voxel_chunks(pts, valid, GRID, PATCH)
-        chunks = jax.tree_util.tree_map(jnp.asarray, chunks)
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(ve.voxel_embed_tokens(
-                chunks, k, b, PATCH, (GRID.height_px, GRID.width_px)))
+        got = _embed(_jnp(chunks), k, b)
         want = _oracle_tokens(pts, valid, k, b)
         np.testing.assert_allclose(got[0], want[0], atol=2e-3, rtol=1e-4)
 
@@ -147,27 +150,40 @@ class TestModelIntegration:
 
         chunks, _ = ve.build_voxel_chunks(
             np.asarray(pts), np.asarray(valid), g, cfg.vit.patch_size)
-        chunks = jax.tree_util.tree_map(jnp.asarray, chunks)
-        with pltpu.force_tpu_interpret_mode():
-            got = model.apply(params, chunks, mp)
+        got = model.apply(params, _jnp(chunks), mp)
         for a, b in zip(got, want):
             np.testing.assert_allclose(
                 np.asarray(a), np.asarray(b), atol=1e-4, rtol=1e-4)
 
 
-class TestUnroll:
-    @pytest.mark.parametrize("unroll", [2, 8])
-    def test_unrolled_chunk_loop_matches(self, rng, weights, unroll, monkeypatch):
-        monkeypatch.setattr(ve, "_UNROLL", unroll)
-        k, b = weights
+class TestPlacementPadding:
+    def test_slot0_cell_survives_padding(self):
+        """A real cell in band 0, window 0, slot 0, channel 0 shares its
+        flat index with every zero pad slot; placement must keep it."""
+        pts = np.zeros((2, 4, 4), np.float32)
+        valid = np.zeros((2, 4), bool)
+        # row 0 / col 0 is the grid's top-left pixel: x just below x_max,
+        # y at y_min; z in the lowest slice; sweep 0 -> channel 0
+        pts[0, 0] = [GRID.bev_x_max - 0.05, GRID.bev_y_min + 0.05,
+                     GRID.z_min + 0.01, 77.0]
+        valid[0, 0] = True
+        chunks, _ = ve.build_voxel_chunks(pts, valid, GRID, PATCH,
+                                          num_chunks=64)
+        bev = np.asarray(ve.voxel_fill_bev(_jnp(chunks), HW, C, PATCH,
+                                           dtype=jnp.float32))[0]
+        want = np.asarray(voxelize_packed(jnp.asarray(pts), jnp.asarray(valid), GRID))
+        assert want[0, 0, 0] == 77.0
+        np.testing.assert_array_equal(bev, want)
+
+    @pytest.mark.parametrize("num_chunks", [None, 256])
+    def test_spare_capacity_places_nothing(self, rng, num_chunks):
         pts, valid = _random_points(rng)
-        chunks, _ = ve.build_voxel_chunks(pts, valid, GRID, PATCH)
-        chunks = jax.tree_util.tree_map(jnp.asarray, chunks)
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(ve.voxel_embed_tokens(
-                chunks, k, b, PATCH, (GRID.height_px, GRID.width_px)))
-        want = _oracle_tokens(pts, valid, k, b)
-        np.testing.assert_allclose(got[0], want[0], atol=2e-3, rtol=1e-4)
+        chunks, _ = ve.build_voxel_chunks(pts, valid, GRID, PATCH,
+                                          num_chunks=num_chunks)
+        got = np.asarray(ve.voxel_fill_bev(_jnp(chunks), HW, C, PATCH,
+                                           dtype=jnp.float32))[0]
+        want = np.asarray(voxelize_packed(jnp.asarray(pts), jnp.asarray(valid), GRID))
+        np.testing.assert_array_equal(got, want)
 
 
 class TestNativeBuilder:
@@ -223,31 +239,26 @@ class TestNativeBuilder:
 
 
 class TestVoxelFillBev:
-    """Dense-BEV fill (CNN path) vs voxelize_packed, same chunk transport."""
+    """Dense-BEV placement vs voxelize_packed, same chunk transport."""
 
-    @pytest.mark.parametrize("strategy", ["reshape", "dot_t"])
-    def test_parity_vs_voxelize(self, rng, strategy, monkeypatch):
-        monkeypatch.setattr(ve, "_STRATEGY", strategy)
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    def test_parity_vs_voxelize(self, rng, dtype):
+        """Bit-equal: both write the same per-cell max, cast once."""
         pts, valid = _random_points(rng)
         chunks, _ = ve.build_voxel_chunks(pts, valid, GRID, PATCH)
-        chunks = jax.tree_util.tree_map(jnp.asarray, chunks)
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(ve.voxel_fill_bev(
-                chunks, (GRID.height_px, GRID.width_px),
-                GRID.lidar_total_channels, PATCH, dtype=jnp.float32))
-        want = np.asarray(
-            voxelize_packed(jnp.asarray(pts), jnp.asarray(valid), GRID))
-        np.testing.assert_allclose(got[0], want, atol=1e-6)
+        got = ve.voxel_fill_bev(_jnp(chunks), HW, C, PATCH, dtype=dtype)
+        want = voxelize_packed(jnp.asarray(pts), jnp.asarray(valid), GRID,
+                               out_dtype=dtype)
+        assert got.dtype == dtype
+        np.testing.assert_array_equal(np.asarray(got[0], np.float32),
+                                      np.asarray(want, np.float32))
 
     def test_empty_points(self, rng):
         pts = np.zeros((2, 16, 4), np.float32)
         valid = np.zeros((2, 16), bool)
         chunks, _ = ve.build_voxel_chunks(pts, valid, GRID, PATCH)
-        chunks = jax.tree_util.tree_map(jnp.asarray, chunks)
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(ve.voxel_fill_bev(
-                chunks, (GRID.height_px, GRID.width_px),
-                GRID.lidar_total_channels, PATCH, dtype=jnp.float32))
+        got = np.asarray(ve.voxel_fill_bev(_jnp(chunks), HW, C, PATCH,
+                                           dtype=jnp.float32))
         assert got.shape == (1, GRID.height_px, GRID.width_px,
                              GRID.lidar_total_channels)
         assert np.all(got == 0.0)
@@ -255,7 +266,7 @@ class TestVoxelFillBev:
 
 class TestChunkTransportPacking:
     """pack_chunk_transport / decode_chunk_transport (the compact H2D
-    encoding the streaming serving path ships, VERDICT r5 item 3)."""
+    encoding the streaming serving path ships)."""
 
     def _chunks(self, rng, integral_intensity):
         pts, valid = _random_points(rng)
@@ -306,21 +317,13 @@ class TestChunkTransportPacking:
         np.testing.assert_array_equal(np.asarray(dec.sl), chunks.sl)
         np.testing.assert_array_equal(np.asarray(dec.val), chunks.val)
 
-    def test_kernel_consumes_decoded_chunks(self, rng, weights):
-        """pack -> ship -> decode -> voxel_embed_tokens matches the
-        direct path (interpret mode)."""
+    def test_placement_consumes_packed_chunks(self, rng, weights):
+        """pack -> ship -> placement (which decodes) matches the direct
+        unpacked path."""
         k, b = weights
         pts, valid = _random_points(rng)
         pts[..., 3] = np.rint(pts[..., 3])
         chunks, _ = ve.build_voxel_chunks(pts, valid, GRID, PATCH)
-        packed = jax.tree_util.tree_map(
-            jnp.asarray, ve.pack_chunk_transport(chunks))
-        with pltpu.force_tpu_interpret_mode():
-            want = ve.voxel_embed_tokens(
-                jax.tree_util.tree_map(jnp.asarray, chunks), k, b, PATCH,
-                (GRID.height_px, GRID.width_px))
-            got = ve.voxel_embed_tokens(
-                ve.decode_chunk_transport(packed), k, b, PATCH,
-                (GRID.height_px, GRID.width_px))
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   atol=1e-5)
+        want = _embed(_jnp(chunks), k, b)
+        got = _embed(_jnp(ve.pack_chunk_transport(chunks)), k, b)
+        np.testing.assert_allclose(got, want, atol=1e-5)

@@ -1,6 +1,6 @@
-"""Torch->Flax weight import differentials against the ACTUAL reference nets.
+"""Torch->intentbev weight import differentials against the ACTUAL reference nets.
 
-The strongest parity proof available in this environment (VERDICT r3 item 2):
+The strongest parity proof available without the reference's trained weights:
 random-initialise the reference's own torch models, import their weights via
 ``intentbev.import_torch``, and assert the intentbev forward reproduces the
 torch forward numerically.
@@ -20,7 +20,6 @@ import torch
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
 from ref_modules import load_ref
 from vit_twin import TwinViT, build_twin_intentnet_vit
@@ -62,7 +61,7 @@ SMALL_CNN = dict(
 
 
 def _build_pair(cfg: CNNBackboneConfig, seed: int):
-    """(reference torch IntentNetCNN, imported flax variables)."""
+    """(reference torch IntentNetCNN, imported intentbev variables)."""
     ref_cnn = load_ref("model_cnn")
     torch.manual_seed(seed)
     tmodel = ref_cnn.IntentNetCNN(backbone_cfg=dict(
@@ -135,50 +134,57 @@ class TestCNNImport:
                 np.asarray(g), t.numpy(), rtol=1e-3, atol=2e-4, err_msg=name)
 
 
-class _ViTTail(nn.Module):
+class _ViTTail:
     """intentbev's post-encoder pipeline (the reference-defined, non-timm
     part of IntentNetViT): per-stream adapter LN->Linear->GELU, token->map
-    reshape, concat, fusion ResidualStage, heads, flatten. Mirrors
-    models/vit.py process_stream tail with the same param names so
+    reshape, concat, fusion residual stage, heads, flatten. Mirrors
+    models/vit.py IntentNetViT.forward's tail with the same param names so
     ``import_vit_nontimm`` trees load directly."""
 
-    adapter_out: int = 48
-    fusion_planes: int = 96
-    grid_hw: tuple = (6, 8)
+    def __init__(self, adapter_out: int = 48, fusion_planes: int = 96,
+                 grid_hw: tuple = (6, 8)):
+        self.adapter_out = adapter_out
+        self.fusion_planes = fusion_planes
+        self.grid_hw = grid_hw
 
-    @nn.compact
-    def __call__(self, tokens_lidar, tokens_map):
-        from intentbev.models.blocks import ResidualStage
-        from intentbev.models.heads import (
-            DetectionHead,
-            IntentionHead,
-            flatten_head_outputs,
-        )
-        from intentbev.models.vit import FastLayerNorm
+    def init(self, key, tokens_lidar, tokens_map):
+        from intentbev.configs import HeadConfig
+        from intentbev.models.blocks import init_residual_stage
+        from intentbev.models.heads import init_heads
+        from intentbev.models.layers import init_dense, init_layer_norm
+
+        d = tokens_lidar.shape[-1]
+        bb = {}
+        for name in ("lidar", "map"):
+            bb[f"adapter_{name}_norm"] = init_layer_norm(d)
+            bb[f"adapter_{name}_proj"] = init_dense(key, d, self.adapter_out)
+        bb["fusion"], stats = init_residual_stage(
+            key, 2 * self.adapter_out, self.fusion_planes, 2, 1, 3)
+        return {"params": {"backbone": bb,
+                           **init_heads(key, self.fusion_planes, HeadConfig())},
+                "batch_stats": {"backbone": {"fusion": stats}}}
+
+    def apply(self, variables, tokens_lidar, tokens_map):
+        from intentbev.configs import HeadConfig
+        from intentbev.models.blocks import residual_stage
+        from intentbev.models.heads import apply_heads
+        from intentbev.models.layers import dense, gelu, layer_norm
 
         gh, gw = self.grid_hw
-        adapter_out, fusion_planes = self.adapter_out, self.fusion_planes
+        p = variables["params"]
+        bb = p["backbone"]
 
-        class _Backbone(nn.Module):
-            @nn.compact
-            def __call__(self, tl, tm):
-                def stream(tokens, name):
-                    h = FastLayerNorm(name=f"adapter_{name}_norm")(tokens)
-                    h = nn.Dense(adapter_out, name=f"adapter_{name}_proj")(h)
-                    h = nn.gelu(h, approximate=False)
-                    return h.reshape(h.shape[0], gh, gw, adapter_out)
+        def stream(tokens, name):
+            h = layer_norm(bb[f"adapter_{name}_norm"], tokens, jnp.float32)
+            h = gelu(dense(bb[f"adapter_{name}_proj"], h, jnp.float32))
+            return h.reshape(h.shape[0], gh, gw, self.adapter_out)
 
-                fused = jnp.concatenate(
-                    [stream(tl, "lidar"), stream(tm, "map")], axis=-1)
-                return ResidualStage(
-                    planes=fusion_planes, num_blocks=2,
-                    stride=1, kernel_size=3, name="fusion",
-                )(fused, train=False)
-
-        feats = _Backbone(name="backbone")(tokens_lidar, tokens_map)
-        cls_l, box_p = DetectionHead(name="det_head")(feats)
-        int_l = IntentionHead(name="intention_head")(feats)
-        return flatten_head_outputs(cls_l, box_p, int_l)
+        fused = jnp.concatenate(
+            [stream(tokens_lidar, "lidar"), stream(tokens_map, "map")], axis=-1)
+        feats, _ = residual_stage(
+            bb["fusion"], variables["batch_stats"]["backbone"]["fusion"], fused,
+            stride=1, dtype=jnp.float32, train=False)
+        return apply_heads(p, feats, HeadConfig(), jnp.float32)
 
 
 class TestViTNonTimmImport:
@@ -329,7 +335,6 @@ def _twin_vit_cfg(lidar_ch=12, map_ch=9, adapter_out=16, fusion=32):
         adapter_out_channels=adapter_out,
         fusion_planes=fusion,
         fusion_layers=2,
-        use_flash_attention=False,  # CPU test backend
     )
 
 
@@ -355,7 +360,7 @@ class TestViTEncoderImport:
         tree = import_vit_encoder(sd, "backbone.vit_lidar")
 
         cfg = _twin_vit_cfg(lidar_ch=in_ch)
-        enc = ViTEncoder(cfg, in_channels=in_ch, use_flash=False)
+        enc = ViTEncoder(cfg, in_channels=in_ch)
         x = rng.normal(0, 1, (2, in_ch, *d["img_size"])).astype(np.float32)
         x_nhwc = jnp.asarray(np.transpose(x, (0, 2, 3, 1)))
 
@@ -396,7 +401,7 @@ class TestViTEncoderImport:
               for k, v in twin.state_dict().items()}
         tree = import_vit_encoder(sd, "backbone.vit_lidar")
         cfg = _twin_vit_cfg(lidar_ch=in_ch)
-        enc = ViTEncoder(cfg, in_channels=in_ch, use_flash=False)
+        enc = ViTEncoder(cfg, in_channels=in_ch)
         x = rng.normal(0, 1, (1, in_ch, *d["img_size"])).astype(np.float32)
         with torch.inference_mode():
             want = twin.forward_features(torch.tensor(x)).numpy()
@@ -481,7 +486,7 @@ class TestViTFullImport:
 
 class TestImportCLI:
     def test_reference_checkpoint_roundtrip(self, tmp_path, rng):
-        """reference torch.save file -> intentbev-import-torch -> orbax
+        """reference torch.save file -> intentbev-import-torch -> intentbev
         checkpoint that load_checkpoint restores with the same weights."""
         from intentbev.checkpoint import load_checkpoint
         from intentbev.import_torch import main as import_main
@@ -513,7 +518,7 @@ class TestImportCLI:
     def test_vit_checkpoint_roundtrip_and_eval_equivalence(
             self, tmp_path, rng):
         """reference ViT torch.save file -> ``intentbev-import-torch
-        --model vit`` -> orbax checkpoint; the imported checkpoint and a
+        --model vit`` -> intentbev checkpoint; the imported checkpoint and a
         natively-saved checkpoint of the same weights give IDENTICAL eval
         metrics on a synthetic split (the round-5 'done' bar)."""
         import dataclasses

@@ -1,15 +1,10 @@
-"""Training-step benchmark at full scale (VERDICT r3 item 5 harness).
+"""Training-step benchmark at full scale.
 
 Times the single-program jitted train step (device voxelize + augment +
 fwd/bwd + AdamW) on resident random data — the same step train.py runs —
-and prints ms/step + samples/s. Use with env knobs to sweep backward
-kernel variants:
+and prints ms/step + samples/s:
 
-    python tools/bench_train.py                    # baseline
-    INTENTBEV_BWD_LANE_BLOCK=384 python tools/bench_train.py
-
-Round-3 baseline: 494 ms/batch-8 (16.2 samples/s) on v5e-1
-(docs/PERF.md "Training step").
+    python tools/bench_train.py [--model cnn] [--transport chunks] [--trace]
 """
 
 from __future__ import annotations
@@ -137,7 +132,7 @@ def main():
             for _ in range(args.steps):
                 state, m = step(state, batch, rng)
             jax.block_until_ready(m)
-        parse(trace_dir, args.steps, args.top)
+        parse(trace_dir, args.steps, args.top)  # device lanes, by scope
 
 
 if __name__ == "__main__":

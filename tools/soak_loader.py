@@ -1,4 +1,4 @@
-"""Loader scale soak (VERDICT r4 next-round item 7).
+"""Loader scale soak.
 
 Stress the host input pipeline at production scale: many logs, multiple
 loader threads, >= 10k sample loads — the regime where the per-log LRU
@@ -11,7 +11,7 @@ this tool measures
   including collation), and
 - the RSS ceiling over the whole soak (leak / unbounded-cache detector),
 
-and prints one JSON line for docs/PERF.md "Host input pipeline".
+and prints one JSON line (host-side loader throughput and memory).
 
 Reference hot loop this exercises: dataset.py:262-367 (the torch Dataset
 __getitem__ the reference hammers with DataLoader workers).
