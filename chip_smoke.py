@@ -9,10 +9,8 @@ Phases, each of which fails the run on any error:
   (b) ops        the attention route against ``reference_attention`` (f32,
                  HIGHEST) at [8, 4501, 6, 64] bf16, output and dq/dk/dv;
                  chunk placement at 400x720x290, batch 8, 16384 points per
-                 sweep: bit-equal in bf16 to the scatter of the same host
-                 cells, and within 1e-4 of the cells to ``voxelize_packed``
-                 on the raw points (edge rounding); the
-                 full-width ViT forward in bf16 (cuDNN route) against the same
+                 sweep, bit-equal in bf16 to ``voxelize_packed`` on the raw
+                 points; the full-width ViT forward in bf16 (cuDNN route) against the same
                  params in f32 on the XLA route at HIGHEST precision;
   (c) serving    ``StreamingInferencer`` on the default ViT (points and
                  chunks transports, which must agree) and CNN, batch 8,
@@ -21,7 +19,8 @@ Phases, each of which fails the run on any error:
                  (points transport) with the compiled memory analysis, one
                  chunks-transport step, two CNN steps, and a checkpoint
                  save/load round trip;
-  (e) 4 cards    the sharded train step on (4,1) and (2,2) meshes and
+  (e) 4 cards    the sharded AdamW train step on (4,1) and (2,2) meshes
+                 (loss, Adam moments and their shardings) and
                  ``StreamingInferencer`` on a (4,1) mesh against one card.
 
 Every bf16 phase asserts that its compiled program calls cuDNN's fused
@@ -47,7 +46,6 @@ BATCH = 8
 POINTS_PER_SWEEP = 16384
 NUM_CHUNKS = 640  # chunk capacity per band for the serving transport
 ATTN_SHAPE = (8, 4501, 6, 64)  # [B, T, H, D] of one flagship stream
-REQUIRE_CUDNN = True  # bf16 programs must call cuDNN's fused attention
 CUDNN_FWD = "__cudnn$fmhaSoftmax"
 CUDNN_BWD = "__cudnn$fmhaSoftmaxBackward"
 
@@ -78,7 +76,7 @@ def assert_cudnn(compiled_text: str, name: str, backward: bool = False) -> None:
     n_fwd = compiled_text.count(CUDNN_FWD + '"')
     n_bwd = compiled_text.count(CUDNN_BWD)
     log(f"  {name}: cuDNN fused-attention calls fwd={n_fwd} bwd={n_bwd}")
-    require(not REQUIRE_CUDNN or (n_fwd and (n_bwd or not backward)),
+    require(n_fwd and (n_bwd or not backward),
             f"{name}: compiled program has no cuDNN fused attention")
 
 
@@ -175,7 +173,7 @@ def phase_attention() -> None:
     t_run = padded_seq_len(t, jnp.bfloat16)
     log(f"(b1) attention [{b},{t},{h},{d}] bf16: route={route}, run at "
         f"T={t_run} with kv_len={t} (as the ViT runs it)")
-    require(route == "cudnn" or not REQUIRE_CUDNN, route)
+    require(route == "cudnn", route)
     k0, k1, k2, k3 = jax.random.split(jax.random.key(SEED), 4)
     q, k, v, do = (jax.random.normal(kk, (b, t, h, d), jnp.bfloat16)
                    for kk in (k0, k1, k2, k3))
@@ -220,8 +218,7 @@ def phase_placement() -> None:
     import jax
     import jax.numpy as jnp
 
-    from intentbev.bev.voxelize import (
-        dedup_cells_host, voxelize_cells, voxelize_packed)
+    from intentbev.bev.voxelize import voxelize_packed
     from intentbev.configs import default_vit_config
     from intentbev.ops.voxel_embed import voxel_fill_bev
 
@@ -236,30 +233,18 @@ def phase_placement() -> None:
     chunks = build_chunks(pts, valid, g, cfg.vit.patch_size)
     log(f"  host chunk build: {(time.perf_counter() - t0) * 1e3:.1f} ms for "
         f"{BATCH} samples, chunks/band max {int(np.max(chunks.count))}")
-    cells = [dedup_cells_host(pts[i], valid[i], g) for i in range(BATCH)]
-    ids = jax.device_put(np.stack([i for i, _ in cells]))
-    vals = jax.device_put(np.stack([v for _, v in cells]))
     chunks = jax.device_put(chunks)
     pts_d, valid_d = jax.device_put((pts, valid))
 
     place = jax.jit(lambda ch: voxel_fill_bev(
         ch, (g.height_px, g.width_px), c, cfg.vit.patch_size, dtype=jnp.bfloat16))
-    scatter_cells = jax.jit(jax.vmap(
-        lambda i, v: voxelize_cells(i, v, g, out_dtype=jnp.bfloat16)))
     scatter = jax.jit(lambda p, v: jax.vmap(
         lambda pp, vv: voxelize_packed(pp, vv, g, out_dtype=jnp.bfloat16))(p, v))
     diff = jax.jit(lambda a, b: (jnp.sum(a != b), jnp.sum(b != 0)))
-    bev = place(chunks)
-    n_diff, n_cells = (int(x) for x in diff(bev, scatter_cells(ids, vals)))
-    log(f"  tolerance: bit equality in bf16 against the device scatter of "
-        f"the host's deduplicated cells (the same cells, written once): "
-        f"{n_cells} non-zero cells, {n_diff} differ")
+    n_diff, n_cells = (int(x) for x in diff(place(chunks), scatter(pts_d, valid_d)))
+    log(f"  tolerance: bit equality in bf16 against voxelize_packed on the raw "
+        f"points: {n_cells} non-zero cells, {n_diff} differ")
     require(n_diff == 0 and n_cells > 0, (n_diff, n_cells))
-    n_diff, n_cells = (int(x) for x in diff(bev, scatter(pts_d, valid_d)))
-    log(f"  vs voxelize_packed on the raw points: {n_diff} of {n_cells} cells "
-        f"differ (limit 1e-4 of the cells): points within float rounding of a "
-        f"cell edge, binned by host floor() vs the GPU's compiled floor()")
-    require(n_diff <= 1e-4 * n_cells, (n_diff, n_cells))
     log(f"  time: placement {timed(place, chunks):.3f} ms, scatter-max "
         f"voxelizer {timed(scatter, pts_d, valid_d):.3f} ms (wall, mean of 5)")
 
@@ -345,20 +330,14 @@ def phase_serving() -> None:
                     f"{dt:.1f} ms wall (first includes compile)")
                 dets[transport].append(det)
         if len(transports) == 2:
-            # the points path bins on device, which places ~1e-5 of the
-            # cells differently from the host's binning (phase b2), so the
-            # two BEVs differ in a handful of cells
+            # both transports build the same BEV (phase b2); only the two
+            # compiled programs' f32 rounding differs
             log("  tolerance: chunks vs points transport, same points, both "
-                "at HIGHEST precision: valid masks equal, scores within 1e-2 "
-                "and 99% of them within 1e-3 (edge-binned cells differ)")
+                "at HIGHEST precision: valid masks equal, scores within 1e-4")
             for a, b in zip(dets["points"], dets["chunks"]):
                 np.testing.assert_array_equal(a.valid, b.valid)
-                err = np.abs(np.asarray(a.scores) - np.asarray(b.scores))
-                log(f"  max score diff {err.max():.2e}, share within 1e-3 "
-                    f"{np.mean(err <= 1e-3):.4f}")
-                require(err.max() <= 1e-2 and np.mean(err <= 1e-3) >= 0.99,
-                        "transports disagree")
-            log("  transports agree")
+                check("transport scores", float(np.max(np.abs(
+                    np.asarray(a.scores) - np.asarray(b.scores)))), 1e-4, "max abs diff")
 
 
 # --------------------------------------------------------------------------
@@ -476,56 +455,91 @@ def phase_training() -> None:
 # (e) four cards
 # --------------------------------------------------------------------------
 
-def sharded_vs_single(cfg, batch: dict, meshes, precision="highest") -> None:
-    """One train step single-device vs on each (data, model) mesh; the
-    loss and the parameter update must agree.
+def adam_moments(opt_state):
+    """(mu, nu) of the one Adam state inside ``make_optimizer``'s state."""
+    import jax
+    import optax
 
-    The step runs with plain SGD, so the update is the gradient itself:
-    Adam's first update is about sign(g), which reduction-order noise
-    flips wherever a gradient is near zero (3.5% relative update
-    difference at loss agreement 7e-8, four-card run with Adam)."""
+    is_adam = lambda x: isinstance(x, optax.ScaleByAdamState)  # noqa: E731
+    (adam,) = [s for s in jax.tree.leaves(opt_state, is_leaf=is_adam) if is_adam(s)]
+    return adam.mu, adam.nu
+
+
+def tree_rel_err(got, want) -> float:
+    """||got - want|| / ||want|| over all leaves, in f64 on the host."""
+    import jax
+
+    num = den = 0.0
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want), strict=True):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        num += float(np.sum((a - b) ** 2))
+        den += float(np.sum(b ** 2))
+    return float(np.sqrt(num / max(den, 1e-300)))
+
+
+def sharded_vs_single(cfg, batch: dict, meshes) -> None:
+    """One AdamW train step on one card vs on each (data, model) mesh.
+
+    Compared: the loss; Adam's first moment mu = (1 - b1) * grad, i.e. the
+    gradient, and its second moment nu = (1 - b2) * grad^2; and the
+    shardings: every parameter spans more than one card, and mu and nu of
+    each parameter are sharded as the parameter is. A missing all-reduce
+    or a batch split wrongly changes the gradient by O(1); the limits
+    leave f32 reduction-order noise (different per-card batch and
+    collective order) room. The parameter update is not compared: Adam's
+    first step is lr * g / (|g| + eps), about lr * sign(g), which that
+    noise flips wherever g is near zero.
+    """
     import jax
     import jax.numpy as jnp
-    import optax
 
     from intentbev.boxes.anchors import generate_anchors
     from intentbev.configs import MeshConfig
     from intentbev.models import build_model
     from intentbev.parallel import (
         create_mesh, local_batch_slice, make_sharded_train_step, shard_train_state)
-    from intentbev.train import init_train_state, make_train_step
+    from intentbev.train import init_train_state, make_optimizer, make_train_step
 
     model = build_model(cfg, train_mode=True)
-    tx = optax.sgd(1.0)
+    tx = make_optimizer(cfg)
     anchors = jnp.asarray(generate_anchors(cfg.grid, cfg.anchors))
     key = jax.random.key(SEED + 1)
     init = jax.device_get(init_train_state(model, cfg, tx, jax.random.key(SEED)))
-    with jax.default_matmul_precision(precision):
+    with jax.default_matmul_precision("highest"):
         s1, m1 = make_train_step(model, cfg, anchors, tx)(
             jax.device_put(init, jax.devices()[0]), batch, key)
-    p0 = init.params
-    upd1 = jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b), jax.device_get(s1.params), p0)
-    norm1 = np.sqrt(sum(float(np.sum(u.astype(np.float64) ** 2)) for u in jax.tree.leaves(upd1)))
+    loss1 = float(m1["loss"])
+    mu1, nu1 = jax.device_get(adam_moments(s1.opt_state))
+    del s1
     for dp, mp in meshes:
         mcfg = dataclasses.replace(cfg, mesh=MeshConfig(data_parallel=dp, model_parallel=mp))
         mesh = create_mesh(mcfg.mesh)
         state = shard_train_state(init, mesh, mcfg)
         step = make_sharded_train_step(model, mcfg, anchors, tx, mesh)(state)
-        with jax.default_matmul_precision(precision):
+        with jax.default_matmul_precision("highest"):
             sn, mn = step(state, local_batch_slice(batch, mesh, mcfg.mesh), key)
-        on_one = [leaf for leaf in jax.tree.leaves(sn.params)
-                  if len(leaf.sharding.device_set) == 1]
-        updn = jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b),
-                            jax.device_get(sn.params), p0)
-        diff = np.sqrt(sum(float(np.sum((a.astype(np.float64) - b) ** 2))
-                           for a, b in zip(jax.tree.leaves(updn), jax.tree.leaves(upd1))))
+        params = jax.tree.leaves(sn.params)
+        mu, nu = adam_moments(sn.opt_state)
+        on_one = sum(len(p.sharding.device_set) == 1 for p in params)
+        misplaced = sum(
+            not m.sharding.is_equivalent_to(p.sharding, p.ndim)
+            for moments in (mu, nu)
+            for m, p in zip(jax.tree.leaves(moments), params, strict=True))
+        split = sum(not p.sharding.is_fully_replicated for p in params)
         log(f"(e) mesh ({dp},{mp}): loss {float(mn['loss']):.6f} vs single "
-            f"{float(m1['loss']):.6f}; params on one device: {len(on_one)}")
-        check(f"mesh ({dp},{mp}) loss", abs(float(mn["loss"]) - float(m1["loss"]))
-              / abs(float(m1["loss"])), 1e-4, "rel err")
-        check(f"mesh ({dp},{mp}) update", diff / norm1, 1e-3,
-              "||du|| / ||u|| (SGD: u = -grad)")
-        require(not on_one, f"{len(on_one)} parameters left whole on one device")
+            f"{loss1:.6f}; {len(params)} parameters, {split} split over "
+            f"'model', {on_one} on one card; moments sharded unlike their "
+            f"parameter: {misplaced}")
+        check(f"mesh ({dp},{mp}) loss", abs(float(mn["loss"]) - loss1) / abs(loss1),
+              1e-4, "rel err")
+        check(f"mesh ({dp},{mp}) Adam mu (gradient)", tree_rel_err(mu, mu1), 1e-2,
+              "||d mu|| / ||mu||")
+        check(f"mesh ({dp},{mp}) Adam nu", tree_rel_err(nu, nu1), 2e-2,
+              "||d nu|| / ||nu||")
+        require(on_one == 0 and misplaced == 0 and (split > 0) == (mp > 1),
+                f"mesh ({dp},{mp}) shardings: {on_one} on one card, "
+                f"{misplaced} moments misplaced, {split} split")
+        del state, sn
 
 
 def streaming_vs_single(cfg, points, valid, map_bev, mesh_shape) -> None:
@@ -577,8 +591,6 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--cards", type=int, choices=(1, 4), default=1,
                    help="4: run only the four-card phase (e)")
-    p.add_argument("--phases", default="abcd",
-                   help="subset of the one-card phases to run (default abcd)")
     args = p.parse_args(argv)
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -606,13 +618,11 @@ def main(argv=None) -> int:
     if args.cards == 4:
         phase_multi()
     else:
-        phases = {"b": (phase_attention, phase_placement, phase_vit_forward),
-                  "c": (phase_serving,), "d": (phase_training,)}
-        for ph in args.phases:
-            for fn in phases.get(ph, ()):
-                t0 = time.perf_counter()
-                fn()
-                log(f"  [{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+        for fn in (phase_attention, phase_placement, phase_vit_forward,
+                   phase_serving, phase_training):
+            t0 = time.perf_counter()
+            fn()
+            log(f"  [{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     d = devices[0]
     print(json.dumps({"ok": True, "device": {

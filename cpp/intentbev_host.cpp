@@ -86,22 +86,39 @@ void ib_draw_polyline(uint8_t* mask, int64_t h, int64_t w,
 // bev: f32 row-major [h, w, c] with c = z_channels * num_sweeps,
 // channel = sweep_idx * z_channels + z_slice.
 // ---------------------------------------------------------------------------
+
+// The f32 binning constants of intentbev.bev.voxelize.bin_constants: each
+// computed in f64 and rounded once, so that a point bins as
+// floor((v - lo) * scale) -- one f32 subtract, one f32 multiply -- exactly
+// as numpy and XLA bin it.
+struct BinConsts {
+  float y_lo, x_hi, inv_v, z_lo, z_hi, z_scale;
+  BinConsts(double vox, double off_x, double off_y, double z_min,
+            double z_max, int64_t z_ch)
+      : y_lo((float)(-off_x * vox)), x_hi((float)(off_y * vox)),
+        inv_v((float)(1.0 / vox)), z_lo((float)z_min), z_hi((float)z_max),
+        z_scale((float)((double)z_ch / (z_max - z_min))) {}
+  int64_t col(float y) const { return (int64_t)std::floor((y - y_lo) * inv_v); }
+  int64_t row(float x) const { return (int64_t)std::floor((x_hi - x) * inv_v); }
+  int64_t slice(float z, int64_t z_ch) const {
+    const int64_t zi = (int64_t)std::floor((z - z_lo) * z_scale);
+    return std::min(std::max(zi, (int64_t)0), z_ch - 1);
+  }
+};
+
 void ib_voxelize_sweep(float* bev, int64_t h, int64_t w, int64_t c,
                        const float* points, int64_t n, int64_t sweep_idx,
-                       int64_t z_channels, float voxel_size,
-                       float offset_col, float offset_row,
-                       float z_min, float z_max) {
-  const float inv_v = 1.0f / voxel_size;
-  const float z_scale = (float)z_channels / (z_max - z_min);
+                       int64_t z_channels, double voxel_size,
+                       double offset_col, double offset_row,
+                       double z_min, double z_max) {
+  const BinConsts bins(voxel_size, offset_col, offset_row, z_min, z_max, z_channels);
   for (int64_t i = 0; i < n; ++i) {
     const float x = points[4 * i], y = points[4 * i + 1];
     const float z = points[4 * i + 2], inten = points[4 * i + 3];
-    if (z < z_min || z >= z_max) continue;
-    const int64_t col = (int64_t)std::floor(offset_col + y * inv_v);
-    const int64_t row = (int64_t)std::floor(offset_row - x * inv_v);
+    if (!(z >= bins.z_lo && z < bins.z_hi)) continue;
+    const int64_t col = bins.col(y), row = bins.row(x);
     if (col < 0 || col >= w || row < 0 || row >= h) continue;
-    int64_t zi = (int64_t)std::floor((z - z_min) * z_scale);
-    zi = std::min(std::max(zi, (int64_t)0), z_channels - 1);
+    const int64_t zi = bins.slice(z, z_channels);
     float* cell = bev + (row * w + col) * c + sweep_idx * z_channels + zi;
     if (inten > *cell) *cell = inten;
   }
@@ -194,10 +211,10 @@ void ib_rotated_iou(const float* boxes1, int64_t n1, const float* boxes2,
 }
 
 // ---------------------------------------------------------------------------
-// Voxel placement-chunk builder for the fused voxelize+patch-embed kernel
+// Voxel placement-chunk builder for the chunk transport
 // (intentbev/ops/voxel_embed.py). Mirrors the numpy build_voxel_chunks
-// exactly: flat cell ids with f64 pixel math (matching numpy's float64
-// upcasting), per-cell max over duplicates, values clamped to >= 0
+// exactly: flat cell ids binned as point_cells bins them (BinConsts),
+// per-cell max over duplicates, values clamped to >= 0
 // (reference zeros-init np.maximum.at semantics, utils.py:101-105), cells
 // grouped by `window`-pixel windows into chunks of <= cap cells.
 //
@@ -221,24 +238,18 @@ int64_t ib_build_chunks(const float* points, const uint8_t* valid, int64_t s,
   // >= 0 BEFORE packing (max-then-clamp == clamp-then-max), so the float
   // bits are order-preserving as u32 and the per-cell MAX is simply the
   // LAST element of each sorted id-run — one scalar sort, no pair structs.
+  const BinConsts bins(vox, off_x, off_y, z_min, z_max, z_ch);
   std::vector<uint64_t> cells;
   cells.reserve((size_t)(s * p));
   for (int64_t i = 0; i < s; ++i) {
     for (int64_t j = 0; j < p; ++j) {
       if (!valid[i * p + j]) continue;
       const float* pt = points + (i * p + j) * 4;
-      // float32 throughout: numpy's NEP-50 weak python scalars keep
-      // `off + y / vox` in f32, so f64 here would bin boundary points
-      // into different cells than the numpy builder / device voxelizer
       const float x = pt[0], y = pt[1], z = pt[2];
-      const float voxf = (float)vox;
-      const int64_t col = (int64_t)std::floor((float)off_x + y / voxf);
-      const int64_t row = (int64_t)std::floor((float)off_y - x / voxf);
+      const int64_t col = bins.col(y), row = bins.row(x);
       if (col < 0 || col >= w || row < 0 || row >= h) continue;
-      if (!(z >= (float)z_min && z < (float)z_max)) continue;
-      int64_t zi = (int64_t)std::floor(
-          (z - (float)z_min) / (float)(z_max - z_min) * (float)z_ch);
-      zi = std::max<int64_t>(0, std::min<int64_t>(zi, z_ch - 1));
+      if (!(z >= bins.z_lo && z < bins.z_hi)) continue;
+      const int64_t zi = bins.slice(z, z_ch);
       const int64_t id = (row * w + col) * C + i * z_ch + zi;
       const float vc = pt[3] < 0.0f ? 0.0f : pt[3];
       uint32_t vb;

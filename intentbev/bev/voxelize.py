@@ -12,6 +12,10 @@ padded tensor (``pack_points``) and the scatter-max runs on device inside
 the jitted step (``voxelize_packed``) — one XLA scatter-max per sample
 instead of the reference's 29-way python loop over ``np.maximum.at``
 (utils.py:98-105). ``voxelize_numpy`` is the host/oracle twin.
+
+Every path bins a point with ``point_cells`` (the C++ builders in
+cpp/intentbev_host.cpp repeat its arithmetic), so host and device put a
+point on a cell edge into the same cell.
 """
 
 from __future__ import annotations
@@ -23,6 +27,42 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..configs import GridConfig
+
+
+def bin_constants(grid: GridConfig) -> tuple[np.float32, ...]:
+    """f32 (y_lo, x_hi, inv_voxel, z_lo, z_hi, z_scale) of ``point_cells``:
+    the ego-frame y of column 0's left edge, the x of row 0's top edge, and
+    the per-metre scales, each computed in f64 and rounded once."""
+    v = grid.voxel_size_m
+    return (np.float32(-grid.pixel_offset_x * v), np.float32(grid.pixel_offset_y * v),
+            np.float32(1.0 / v), np.float32(grid.z_min), np.float32(grid.z_max),
+            np.float32(grid.lidar_height_channels / (grid.z_max - grid.z_min)))
+
+
+def point_cells(x, y, z, grid: GridConfig):
+    """(row, col, z_slice, in_grid) of each point; numpy or jax arrays.
+
+    The reference's ``floor(offset + y / voxel)`` bins differently on host
+    and device: XLA turns a division by a constant into a multiply by its
+    reciprocal (and folds the z scales into one), and the GPU may fuse a
+    multiply and an add into one FMA. So a point within rounding of a cell
+    edge fell into neighbouring cells. Here each coordinate takes one
+    rounded f32 subtract and one rounded f32 multiply by a constant, which
+    numpy, C++ and XLA on any backend compute the same.
+    """
+    y_lo, x_hi, inv_v, z_lo, z_hi, z_scale = bin_constants(grid)
+    if isinstance(x, jax.Array):
+        xp, idx = jnp, jnp.int32
+    else:
+        xp, idx = np, np.int64
+        x, y, z = (np.asarray(a, np.float32) for a in (x, y, z))
+    col = xp.floor((y - y_lo) * inv_v).astype(idx)
+    row = xp.floor((x_hi - x) * inv_v).astype(idx)
+    zi = xp.clip(xp.floor((z - z_lo) * z_scale).astype(idx), 0,
+                 grid.lidar_height_channels - 1)
+    ok = ((col >= 0) & (col < grid.width_px) & (row >= 0) & (row < grid.height_px)
+          & (z >= z_lo) & (z < z_hi))
+    return row, col, zi, ok
 
 
 def pack_points(
@@ -112,23 +152,9 @@ def voxelize_packed(
     s = points.shape[0]
     c = s * z_ch
 
-    x = points[..., 0]
-    y = points[..., 1]
-    z = points[..., 2]
     inten = points[..., 3]
-
-    col = jnp.floor(grid.pixel_offset_x + y / grid.voxel_size_m).astype(jnp.int32)
-    row = jnp.floor(grid.pixel_offset_y - x / grid.voxel_size_m).astype(jnp.int32)
-    ok = (
-        valid
-        & (col >= 0) & (col < w)
-        & (row >= 0) & (row < h)
-        & (z >= grid.z_min) & (z < grid.z_max)
-    )
-    zi = jnp.floor(
-        (z - grid.z_min) / (grid.z_max - grid.z_min) * z_ch
-    ).astype(jnp.int32)
-    zi = jnp.clip(zi, 0, z_ch - 1)
+    row, col, zi, ok = point_cells(points[..., 0], points[..., 1], points[..., 2], grid)
+    ok = valid & ok
 
     sweep_idx = jax.lax.broadcasted_iota(jnp.int32, points.shape[:2], 0)
     channel = sweep_idx * z_ch + zi
@@ -178,17 +204,9 @@ def dedup_cells_host(
     c = s * z_ch
     n_total = points.shape[0] * points.shape[1]
 
-    x, y, z, inten = (points[..., i] for i in range(4))
-    col = np.floor(grid.pixel_offset_x + y / grid.voxel_size_m).astype(np.int64)
-    row = np.floor(grid.pixel_offset_y - x / grid.voxel_size_m).astype(np.int64)
-    ok = (
-        np.asarray(valid, bool)
-        & (col >= 0) & (col < w) & (row >= 0) & (row < h)
-        & (z >= grid.z_min) & (z < grid.z_max)
-    )
-    zi = np.clip(
-        np.floor((z - grid.z_min) / (grid.z_max - grid.z_min) * z_ch), 0, z_ch - 1
-    ).astype(np.int64)
+    inten = points[..., 3]
+    row, col, zi, ok = point_cells(points[..., 0], points[..., 1], points[..., 2], grid)
+    ok &= np.asarray(valid, bool)
     sweep_idx = np.arange(s, dtype=np.int64)[:, None]
     flat = ((row * w + col) * c + sweep_idx * z_ch + zi)[ok]
     vals = inten[ok].astype(np.float32)
@@ -247,14 +265,7 @@ def voxelize_numpy(
         pts, inten = points_list[i], intensity_list[i]
         if pts is None or inten is None or pts.shape[0] == 0:
             continue
-        x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
-        col = np.floor(grid.pixel_offset_x + y / grid.voxel_size_m).astype(int)
-        row = np.floor(grid.pixel_offset_y - x / grid.voxel_size_m).astype(int)
-        ok = (col >= 0) & (col < w) & (row >= 0) & (row < h) & (z >= grid.z_min) & (z < grid.z_max)
-        col, row, zf, it = col[ok], row[ok], z[ok], inten[ok]
-        if len(col) == 0:
-            continue
-        zi = np.floor((zf - grid.z_min) / (grid.z_max - grid.z_min) * z_ch).astype(int)
-        zi = np.clip(zi, 0, z_ch - 1)
+        row, col, zi, ok = point_cells(pts[:, 0], pts[:, 1], pts[:, 2], grid)
+        row, col, zi, it = row[ok], col[ok], zi[ok], inten[ok]
         np.maximum.at(bev, (row, col, i * z_ch + zi), it.astype(np.float32))
     return bev

@@ -19,22 +19,31 @@ from ..train import TrainState, train_step_fn
 from .sharding import batch_sharding, param_shardings, replicated
 
 
-def shard_train_state(state: TrainState, mesh, cfg: ExperimentConfig) -> TrainState:
-    """Place an (unsharded) TrainState according to the mesh rules."""
+def state_shardings(state: TrainState, mesh, cfg: ExperimentConfig) -> TrainState:
+    """Shardings of a TrainState: parameters by the mesh rules, optimizer
+    moments (subtrees shaped like the parameters, e.g. Adam's mu and nu)
+    like their parameters, everything else replicated."""
     p_shard = param_shardings(state.params, mesh, cfg.mesh)
     rep = replicated(mesh)
+    params_def = jax.tree.structure(state.params)
+
+    def like_params(x) -> bool:
+        return jax.tree.structure(x) == params_def
+
     return TrainState(
-        params=jax.device_put(state.params, p_shard),
-        batch_stats=jax.device_put(state.batch_stats, rep),
-        opt_state=jax.device_put(
-            state.opt_state,
-            jax.tree.map(
-                lambda _: rep, state.opt_state,
-                is_leaf=lambda x: hasattr(x, "shape"),
-            ),
+        params=p_shard,
+        batch_stats=jax.tree.map(lambda _: rep, state.batch_stats),
+        opt_state=jax.tree.map(
+            lambda x: p_shard if like_params(x) else rep, state.opt_state,
+            is_leaf=lambda x: like_params(x) or hasattr(x, "shape"),
         ),
-        step=jax.device_put(state.step, rep),
+        step=rep,
     )
+
+
+def shard_train_state(state: TrainState, mesh, cfg: ExperimentConfig) -> TrainState:
+    """Place an (unsharded) TrainState according to the mesh rules."""
+    return jax.device_put(state, state_shardings(state, mesh, cfg))
 
 
 def make_sharded_train_step(model, cfg: ExperimentConfig, anchors, tx, mesh,
@@ -66,20 +75,8 @@ def make_sharded_train_step(model, cfg: ExperimentConfig, anchors, tx, mesh,
             "aug_params": b_shard,
         }
 
-    def state_shardings(state: TrainState) -> TrainState:
-        p_shard = param_shardings(state.params, mesh, cfg.mesh)
-        return TrainState(
-            params=p_shard,
-            batch_stats=jax.tree.map(lambda _: rep, state.batch_stats),
-            opt_state=jax.tree.map(
-                lambda _: rep, state.opt_state,
-                is_leaf=lambda x: hasattr(x, "shape"),
-            ),
-            step=rep,
-        )
-
     def compile_for(state: TrainState):
-        ss = state_shardings(state)
+        ss = state_shardings(state, mesh, cfg)
         return jax.jit(
             step_fn,
             in_shardings=(ss, batch_shardings, rep),

@@ -62,20 +62,19 @@ NATIVE_AVAILABLE = native_lib is not None
 
 if NATIVE_AVAILABLE:
     _i64 = ctypes.c_int64
-    _f32 = ctypes.c_float
+    _f64 = ctypes.c_double
     native_lib.ib_fill_polygon.argtypes = [
         ctypes.c_void_p, _i64, _i64, ctypes.c_void_p, _i64]
     native_lib.ib_draw_polyline.argtypes = [
         ctypes.c_void_p, _i64, _i64, ctypes.c_void_p, _i64]
     native_lib.ib_voxelize_sweep.argtypes = [
         ctypes.c_void_p, _i64, _i64, _i64, ctypes.c_void_p, _i64, _i64, _i64,
-        _f32, _f32, _f32, _f32, _f32]
+        _f64, _f64, _f64, _f64, _f64]
     native_lib.ib_transform_points.argtypes = [
         ctypes.c_void_p, _i64, ctypes.c_void_p, ctypes.c_void_p]
     native_lib.ib_rotated_iou.argtypes = [
         ctypes.c_void_p, _i64, ctypes.c_void_p, _i64, ctypes.c_void_p]
     if hasattr(native_lib, "ib_build_chunks"):  # stale pre-built .so guard
-        _f64 = ctypes.c_double
         native_lib.ib_build_chunks.restype = _i64
         native_lib.ib_build_chunks.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, _i64, _i64, _i64, _i64, _i64,

@@ -9,17 +9,14 @@ full width) is exercised by ``python chip_smoke.py`` on the card.
 
 import os
 
-# INTENTBEV_TEST_PLATFORM=cuda runs the suite on the card instead (the
-# tests marked ``gpu`` skip everywhere else)
-PLATFORM = os.environ.get("INTENTBEV_TEST_PLATFORM", "cpu")
-os.environ["JAX_PLATFORMS"] = PLATFORM
+os.environ["JAX_PLATFORMS"] = "cpu"
 flags = os.environ.get("XLA_FLAGS", "")
-if PLATFORM == "cpu" and "xla_force_host_platform_device_count" not in flags:
+if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", PLATFORM)
+jax.config.update("jax_platforms", "cpu")
 
 from intentbev.utils.compile_cache import enable_compilation_cache  # noqa: E402
 
@@ -33,11 +30,3 @@ import pytest  # noqa: E402
 def rng():
     return np.random.default_rng(0)
 
-
-@pytest.fixture
-def gpu():
-    """Skip unless the backend is a GPU (decided at test time, never at
-    import, so every xdist worker collects the same tests)."""
-    if jax.default_backend() != "gpu":
-        pytest.skip("needs an NVIDIA GPU; python chip_smoke.py runs this "
-                    "path on the card")

@@ -23,7 +23,56 @@ from intentbev.bev.augment import augment_bev
 SMALL_GRID = GridConfig(height_px=64, width_px=96, lidar_height_channels=4, lidar_sweeps=2)
 
 
+def _edge_points(grid: GridConfig, rng) -> np.ndarray:
+    """f32[2, P, 4] points on and one ulp either side of every cell edge
+    (x, y and z), where ``floor(offset + y / voxel)`` binned differently
+    on host and device."""
+    v = grid.voxel_size_m
+    xs = grid.pixel_offset_y * v - np.arange(grid.height_px + 1) * v
+    ys = -grid.pixel_offset_x * v + np.arange(grid.width_px + 1) * v
+    zs = grid.z_min + np.arange(grid.lidar_height_channels + 1) * (
+        (grid.z_max - grid.z_min) / grid.lidar_height_channels)
+
+    def around(e):
+        e = e.astype(np.float32)
+        return np.concatenate([np.nextafter(e, -np.inf), e, np.nextafter(e, np.inf)])
+
+    x, y, z = around(xs), around(ys), around(zs)
+    n = 3 * max(x.size, y.size)
+    pts = np.stack([rng.permutation(np.resize(x, n)), rng.permutation(np.resize(y, n)),
+                    np.resize(z, n), rng.integers(1, 256, n)], -1).astype(np.float32)
+    return np.stack([pts, pts[::-1]])
+
+
 class TestVoxelizer:
+    @pytest.mark.parametrize("path", ["jit", "cells", "native"])
+    def test_edge_points_bin_alike_everywhere(self, rng, path):
+        """Points on cell edges land in the same cell on every path: the
+        numpy oracle, the jitted device voxelizer, the host cell dedup and
+        the C++ twin."""
+        from intentbev.bev.voxelize import dedup_cells_host, voxelize_cells
+
+        grid = SMALL_GRID
+        pts = _edge_points(grid, rng)
+        valid = np.ones(pts.shape[:2], bool)
+        want = voxelize_numpy([p[:, :3] for p in pts], [p[:, 3] for p in pts], grid)
+        assert np.count_nonzero(want) > 1000
+        if path == "jit":
+            got = np.asarray(voxelize_packed(jnp.asarray(pts), jnp.asarray(valid), grid))
+        elif path == "cells":
+            ids, vals = dedup_cells_host(pts, valid, grid)
+            got = np.asarray(voxelize_cells(jnp.asarray(ids), jnp.asarray(vals), grid))
+        else:
+            from intentbev.utils.native import NATIVE_AVAILABLE, voxelize_sweep_native
+            if not NATIVE_AVAILABLE:
+                pytest.skip("native lib unavailable")
+            got = np.zeros_like(want)
+            for i in range(2):
+                assert voxelize_sweep_native(
+                    got, pts[i], i, grid.lidar_height_channels, grid.voxel_size_m,
+                    grid.pixel_offset_x, grid.pixel_offset_y, grid.z_min, grid.z_max)
+        np.testing.assert_array_equal(got, want)
+
     def test_device_matches_numpy_oracle(self, rng):
         grid = SMALL_GRID
         pts_list, int_list = [], []

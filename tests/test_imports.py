@@ -59,23 +59,29 @@ class TestCompileCache:
         from intentbev.utils import compile_cache
 
         monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
-        monkeypatch.delenv("INTENTBEV_NO_COMPILE_CACHE", raising=False)
         assert compile_cache.cache_dir() == str(tmp_path)
 
     def test_default_is_fixed_inside_checkout(self, monkeypatch):
         from intentbev.utils import compile_cache
 
         monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
-        monkeypatch.delenv("INTENTBEV_NO_COMPILE_CACHE", raising=False)
         d = Path(compile_cache.cache_dir())
         assert d == REPO / ".jax_cache"
         assert ".jax_cache/" in (REPO / ".gitignore").read_text().split()
 
-    def test_opt_out(self, monkeypatch):
-        from intentbev.utils import compile_cache
-
-        monkeypatch.setenv("INTENTBEV_NO_COMPILE_CACHE", "1")
-        assert compile_cache.cache_dir() is None
+    def test_programs_land_in_env_dir(self, tmp_path):
+        code = (
+            "import sys; sys.path.insert(0, %r)\n"
+            "import jax, jax.numpy as jnp\n"
+            "from intentbev.utils.compile_cache import enable_compilation_cache\n"
+            "enable_compilation_cache()\n"
+            "jax.config.update('jax_persistent_cache_min_compile_time_secs', 0)\n"
+            "jax.jit(lambda x: jnp.sin(x) * 3)(jnp.ones(7)).block_until_ready()\n"
+            % str(REPO))
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                           env=_env(JAX_COMPILATION_CACHE_DIR=str(tmp_path)), timeout=300)
+        assert r.returncode == 0, r.stderr
+        assert any(tmp_path.iterdir())
 
     @pytest.mark.parametrize("set_env", [True, False])
     def test_enable_sets_no_other_directory(self, tmp_path, set_env):

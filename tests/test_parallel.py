@@ -82,6 +82,35 @@ class TestShardingRules:
 
 
 class TestShardedStep:
+    def test_adam_moments_sharded_like_params(self):
+        """mu and nu of a tensor-parallel weight are split like the weight
+        itself, before and after a step; counters stay replicated."""
+        import optax
+
+        cfg = dataclasses.replace(tiny_test_config(), mesh=MeshConfig(model_parallel=2))
+        model = build_model(cfg, train_mode=True)
+        tx = make_optimizer(cfg)
+        state = init_train_state(model, cfg, tx, jax.random.key(0))
+        mesh = create_mesh(cfg.mesh)
+        anchors = jnp.asarray(generate_anchors(cfg.grid, cfg.anchors))
+        sharded = shard_train_state(state, mesh, cfg)
+        step = make_sharded_train_step(model, cfg, anchors, tx, mesh)(sharded)
+        after, _ = step(sharded, jax.device_put(_make_batch(cfg),
+                                                batch_sharding(mesh, cfg.mesh)),
+                        jax.random.key(1))
+        for st in (sharded, after):
+            adam = [s for s in jax.tree.leaves(
+                st.opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+                if isinstance(s, optax.ScaleByAdamState)]
+            assert len(adam) == 1
+            p_leaves = jax.tree.leaves(st.params)
+            for moments in (adam[0].mu, adam[0].nu):
+                for m, p in zip(jax.tree.leaves(moments), p_leaves, strict=True):
+                    assert m.sharding.is_equivalent_to(p.sharding, p.ndim)
+            qkv = st.params["backbone"]["vit_lidar"]["block0"]["attn"]["qkv"]["kernel"]
+            assert qkv.sharding.spec == jax.sharding.PartitionSpec(None, "model")
+            assert adam[0].count.sharding.is_fully_replicated
+
     @pytest.mark.parametrize("model_parallel", [1, 2])
     def test_dp_tp_step_runs_and_matches_single_device(self, model_parallel):
         cfg = tiny_test_config()

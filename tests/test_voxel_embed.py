@@ -187,6 +187,19 @@ class TestPlacementPadding:
 
 
 class TestNativeBuilder:
+    def test_native_matches_numpy_on_cell_edges(self, rng):
+        from intentbev.utils.native import NATIVE_AVAILABLE, native_lib
+        if not NATIVE_AVAILABLE or not hasattr(native_lib, "ib_build_chunks"):
+            pytest.skip("native lib unavailable")
+        from test_bev import _edge_points
+
+        pts = _edge_points(GRID, rng)
+        valid = np.ones(pts.shape[:2], bool)
+        a, _ = ve.build_voxel_chunks(pts, valid, GRID, PATCH, use_native=True)
+        b, _ = ve.build_voxel_chunks(pts, valid, GRID, PATCH, use_native=False)
+        for name, x, y in zip(a._fields, a, b):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=name)
+
     def test_native_matches_numpy(self, rng):
         from intentbev.utils.native import NATIVE_AVAILABLE, native_lib
         if not NATIVE_AVAILABLE or not hasattr(native_lib, "ib_build_chunks"):
